@@ -1,0 +1,14 @@
+"""Data layer: NIfTI I/O, datasets, host transforms, batching/prefetch
+(numpy only)."""
+from .datasets import (SegDataset, SegDataSetBrains, SegDataSetMindBoggle,
+                       SegDataSetOAIZIB, SegDataSetOASIS, get_seg_dataset)
+from .loader import DataLoader
+from .nifti import NiftiImage, read_nifti, write_nifti
+from .transforms import Compose, LeftToRight, Partition, VolumeToArray
+
+__all__ = [
+    "NiftiImage", "read_nifti", "write_nifti",
+    "SegDataset", "SegDataSetBrains", "SegDataSetMindBoggle",
+    "SegDataSetOAIZIB", "SegDataSetOASIS", "get_seg_dataset",
+    "DataLoader", "Compose", "LeftToRight", "Partition", "VolumeToArray",
+]

@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), one module per TPU
+kernel family, each with its plain PyTorch version and a launch counter.
+
+Sources live in ``csrc/`` and are built at first use (``build.py``);
+importing this package builds nothing and works without ``nvcc``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from .conv3d import conv3d_k3, conv3d_k3_plain, conv3d_point, conv3d_point_plain
+from .deconv3d import deconv2x, deconv2x_plain
+
+# wrapper -> its plain version, in the order the U-Net first launches them
+KERNELS = {
+    "conv3d_k3": (conv3d_k3, conv3d_k3_plain),
+    "deconv2x": (deconv2x, deconv2x_plain),
+    "conv3d_point": (conv3d_point, conv3d_point_plain),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, (fn, _) in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn, _ in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["KERNELS", "conv3d_k3", "conv3d_k3_plain", "conv3d_point",
+           "conv3d_point_plain", "deconv2x", "deconv2x_plain",
+           "launch_counts", "reset_launch_counts"]

@@ -1,0 +1,4 @@
+"""Segmentation metrics."""
+from .confusion import confusion_matrix, dice_from_confusion
+
+__all__ = ["confusion_matrix", "dice_from_confusion"]

@@ -1,0 +1,50 @@
+"""Network registry.
+
+Same keys as ``deepatlas_tpu.models``: ``get_network(name)`` returns a module
+factory called with the reference's model settings, e.g.
+``get_network("UNet_light")(in_channel=1, n_classes=5, bias=True, BN=True,
+dtype=torch.bfloat16)``.  Networks whose port has not landed yet raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from functools import partial
+
+from .convert import unet_from_flax
+from .layers import BatchNorm, ConvBlock, DeconvBlock, max_pool_3d
+from .unet import UNetTemplate
+
+__all__ = ["BatchNorm", "ConvBlock", "DeconvBlock", "UNetLight",
+           "UNetTemplate", "get_available_networks", "get_network",
+           "max_pool_3d", "network_dic", "unet_from_flax"]
+
+# the UNet_light channel plan
+UNET_LIGHT_ENCODERS = ((8, 16), (16, 16, 32), (32, 32, 64), (64, 64, 64))
+UNET_LIGHT_DECODERS = ((64, 64, 64), (64, 32, 32), (32, 16, 16))
+
+UNetLight = partial(UNetTemplate,
+                    encoders=UNET_LIGHT_ENCODERS,
+                    decoders=UNET_LIGHT_DECODERS,
+                    act="LeakyReLU")
+
+network_dic = {
+    "UNet_light": UNetLight,
+}
+
+# keys of the JAX registry whose port comes with a later slice
+_NOT_PORTED = ("UNet", "voxel_morph_cvpr")
+
+
+def get_network(network_name: str):
+    if network_name in _NOT_PORTED:
+        raise NotImplementedError(
+            f'Network "{network_name}" is not ported to PyTorch yet; see '
+            f"ROADMAP.md for the slice that brings it")
+    if network_name not in network_dic:
+        raise KeyError(f'Network "{network_name}" is not available!\n '
+                       f"Choose from: {get_available_networks()}")
+    return network_dic[network_name]
+
+
+def get_available_networks():
+    return tuple(network_dic.keys())

@@ -1,0 +1,133 @@
+"""Convert the JAX package's U-Net variables into this package's state_dict.
+
+The JAX ``UNetTemplate`` stores one of two parameter trees:
+
+  * standard (``packed=False``): ``ConvBlock_i/{Conv_0, BatchNorm_0}``,
+    ``DeconvBlock_j/{ConvTranspose_0, BatchNorm_0}`` whose kernel is
+    ``(2, 2, 2, O, I)`` (flax ``transpose_kernel``), and the head ``Conv_0``;
+  * packed (``packed=True``, what ``infer_seg.py`` trains and restores by
+    default): ``PackedConvBlock_k/{kernel, bias, PackedBatchNorm_0}`` and
+    ``PackedDeconvBlock_k`` with a ``(2, 2, 2, I, O)`` kernel on the top
+    ``packed_levels`` levels, standard ``ConvBlock_j`` / ``DeconvBlock_j``
+    on the deeper ones, and the head as the last ``PackedConvBlock``.
+
+Flax numbers modules per class in creation order: encoder chains top-down,
+then per decoder level its upsampler and its conv chain, then the head
+(``deepatlas_tpu/models/packed.py::transfer_unet_params`` walks the same
+order).  Variables arrive as nested dicts of arrays; only numpy is used.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _creation_order(model, nl: Optional[int]) -> Tuple[List, List, str]:
+    """Flax module names of the convs (encoder then decoder order), the
+    deconvs and the head, for the standard tree (``nl`` None) or a packed
+    tree with ``nl`` packed levels."""
+    levels = len(model.encoders)
+    n = {"PackedConvBlock": 0, "ConvBlock": 0, "PackedDeconvBlock": 0,
+         "DeconvBlock": 0}
+
+    def take(kind, packed):
+        key = ("Packed" + kind) if packed else kind
+        name = f"{key}_{n[key]}"
+        n[key] += 1
+        return name
+
+    def packed_level(level):
+        return nl is not None and level < nl
+
+    convs, deconvs = [], []
+    for i, plan in enumerate(model.encoders):
+        for _ in (plan if i == 0 else plan[1:]):
+            convs.append(take("ConvBlock", packed_level(i)))
+    for j, plan in enumerate(model.decoders):
+        out_level = levels - 2 - j
+        deconvs.append(take("DeconvBlock", packed_level(out_level)))
+        for _ in plan[1:]:
+            convs.append(take("ConvBlock", packed_level(out_level)))
+    head_level = levels - 2 - (len(model.decoders) - 1)
+    head = take("ConvBlock", True) if packed_level(head_level) else "Conv_0"
+    return convs, deconvs, head
+
+
+def _np(a) -> np.ndarray:
+    return np.array(a, dtype=np.float32)      # a writable copy
+
+
+def _block_entry(params: dict, stats: dict, name: str) -> Dict[str, np.ndarray]:
+    """kernel / bias / BatchNorm arrays of one flax block, either tree."""
+    p = params[name]
+    s = stats.get(name, {})
+    if name.startswith("Packed") or name == "Conv_0":
+        op, bn, bn_stats = p, p.get("PackedBatchNorm_0"), \
+            s.get("PackedBatchNorm_0")
+    else:
+        inner = "ConvTranspose_0" if name.startswith("Deconv") else "Conv_0"
+        op, bn, bn_stats = p[inner], p.get("BatchNorm_0"), s.get("BatchNorm_0")
+    out = {"weight": _np(op["kernel"])}
+    if "bias" in op:
+        out["bias"] = _np(op["bias"])
+    if bn is not None:
+        out["bn.weight"] = _np(bn["scale"])
+        out["bn.bias"] = _np(bn["bias"])
+        out["bn.running_mean"] = _np(bn_stats["mean"])
+        out["bn.running_var"] = _np(bn_stats["var"])
+    return out
+
+
+def unet_from_flax(variables: dict, model) -> Dict[str, torch.Tensor]:
+    """State dict of ``model`` (a ``UNetTemplate``) from the JAX U-Net's
+    ``{'params': ..., ['batch_stats': ...]}``, standard or packed tree.
+
+    Raises ``ValueError`` when the tree does not fit the model's plan.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {}) or {}
+    keys = set(params)
+    candidates = [None] + list(range(1, len(model.encoders)))
+    for nl in candidates:
+        convs, deconvs, head = _creation_order(model, nl)
+        if set(convs) | set(deconvs) | {head} == keys:
+            break
+    else:
+        raise ValueError(f"parameter tree {sorted(keys)} does not match the "
+                         f"U-Net plan {model.encoders} / {model.decoders}")
+
+    targets = [f"enc.{i}.{k}" for i, lvl in enumerate(model.enc)
+               for k in range(len(lvl))]
+    targets += [f"dec.{j}.{k}" for j, lvl in enumerate(model.dec)
+                for k in range(len(lvl))]
+    sd: Dict[str, np.ndarray] = {}
+    for prefix, name in zip(targets, convs):
+        for k, v in _block_entry(params, stats, name).items():
+            sd[f"{prefix}.{k}"] = v
+    for j, name in enumerate(deconvs):
+        entry = _block_entry(params, stats, name)
+        if not name.startswith("Packed"):
+            # standard (2, 2, 2, O, I) -> (2, 2, 2, I, O)
+            entry["weight"] = entry["weight"].transpose(0, 1, 2, 4, 3)
+        for k, v in entry.items():
+            sd[f"ups.{j}.{k}"] = v
+    head_entry = _block_entry(params, stats, head)
+    sd["head.weight"] = head_entry["weight"].reshape(
+        head_entry["weight"].shape[-2:])
+    if "bias" in head_entry:
+        sd["head.bias"] = head_entry["bias"]
+
+    ref = model.state_dict()
+    if set(sd) != set(ref):
+        raise ValueError(f"converted keys differ from the model's: missing "
+                         f"{sorted(set(ref) - set(sd))}, extra "
+                         f"{sorted(set(sd) - set(ref))}")
+    out = {}
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(ref[k].shape):
+            raise ValueError(f"{k}: shape {v.shape} from the tree, model "
+                             f"has {tuple(ref[k].shape)}")
+        out[k] = torch.from_numpy(np.ascontiguousarray(v))
+    return out

@@ -1,0 +1,42 @@
+"""Checkpoint save/restore in the original PyTorch reference's format.
+
+A checkpoint is one ``torch.save`` file of ``{'epoch', 'best_score',
+'model'}`` (``model`` a state_dict), written as ``<path>/checkpoint`` and,
+when it is the best so far, copied to ``<path>/model_best`` — the
+reference's periodic + best semantics.  Checkpoints of the JAX package
+(orbax directories) convert with ``tools/flax_ckpt_to_torch.py``.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Optional
+
+import torch
+
+CKPT_NAME = "checkpoint"
+BEST_NAME = "model_best"
+
+
+def save_checkpoint(state: dict, is_best: bool, path: str,
+                    prefix: Optional[str] = None) -> str:
+    """Save ``state`` (``{'epoch', 'best_score', 'model', ...}``) under
+    ``path``; also copy it to the best slot when ``is_best``.  Returns the
+    checkpoint file's path."""
+    os.makedirs(path, exist_ok=True)
+    name = f"{prefix}_{CKPT_NAME}" if prefix else CKPT_NAME
+    best = f"{prefix}_{BEST_NAME}" if prefix else BEST_NAME
+    target = os.path.join(path, name)
+    tmp = target + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, target)
+    if is_best:
+        shutil.copyfile(target, os.path.join(path, best))
+    return target
+
+
+def load_checkpoint(path: str, map_location="cpu") -> dict:
+    """Load a checkpoint file written by ``save_checkpoint``."""
+    if not os.path.isfile(path):
+        raise ValueError(f"=> no checkpoint found at '{path}'")
+    return torch.load(path, map_location=map_location, weights_only=True)

@@ -1,0 +1,57 @@
+#!/usr/bin/env python
+"""Convert a JAX-package U-Net checkpoint into a deepatlas_torch checkpoint.
+
+Restores an orbax checkpoint directory written by
+``deepatlas_tpu.train.save_checkpoint`` (standard or packed parameter tree),
+maps its variables onto the PyTorch port's ``UNetTemplate`` with
+``deepatlas_torch.models.unet_from_flax``, and writes the port's checkpoint
+(``<out>/checkpoint`` and ``<out>/model_best``) for ``infer_seg_torch.py``.
+This is the one bridge that imports both packages.
+
+Example:
+  python tools/flax_ckpt_to_torch.py --ckpt runs/seg/model_best \\
+      --out runs/seg_torch --n-classes 5
+"""
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ckpt", required=True,
+                    help="orbax checkpoint directory of deepatlas_tpu")
+    ap.add_argument("--out", required=True,
+                    help="directory for the deepatlas_torch checkpoint")
+    ap.add_argument("--model", default="UNet_light")
+    ap.add_argument("--n-classes", type=int, required=True)
+    ap.add_argument("--bias", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--BN", action=argparse.BooleanOptionalAction,
+                    default=True)
+    args = ap.parse_args(argv)
+
+    from deepatlas_tpu.utils.platform import honor_platform_env
+    honor_platform_env()
+    from deepatlas_tpu.train import load_checkpoint as load_flax
+
+    from deepatlas_torch.models import get_network, unet_from_flax
+    from deepatlas_torch.train import save_checkpoint
+
+    restored = load_flax(args.ckpt)
+    model = get_network(args.model)(in_channel=1, n_classes=args.n_classes,
+                                    bias=args.bias, BN=args.BN)
+    variables = {"params": restored["params"],
+                 "batch_stats": restored.get("batch_stats") or {}}
+    state = {"epoch": int(restored.get("epoch", 0)),
+             "best_score": float(restored.get("best_score", 0.0)),
+             "model": unet_from_flax(variables, model)}
+    path = save_checkpoint(state, True, args.out)
+    print(f"wrote {path} and {os.path.join(args.out, 'model_best')}")
+
+
+if __name__ == "__main__":
+    main()
