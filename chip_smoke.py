@@ -8,9 +8,14 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      every float32 reference.
   2. build   -- compile the CUDA sources of deepatlas_torch/kernels/csrc.
   3. kernels -- each kernel against its plain PyTorch version at every
-     shape the UNet_light tile forward launches (batch 4 of 128^3 tiles), in
-     float32 and bfloat16, with kernel / plain / library (cuDNN) times from
-     CUDA events and the least time the card could take (``bound_ms``).
+     shape the two main paths launch it at, in float32 and bfloat16, with
+     kernel / plain / library (cuDNN) times from CUDA events and the least
+     time the card could take (``bound_ms``).  Serving: the UNet_light tile
+     forward (batch 4 of 128^3 tiles).  Training: one step on a 168x200x168
+     volume with 32 classes -- the forward convs, kernel A again at its 13
+     input-gradient shapes (Cin and Cout swapped), the head's kernel at its
+     input-gradient shape, and the k3 weight-gradient kernel at its 14
+     shapes.
   4. main    -- the segmentation serving path: a synthetic OAI-ZIB corpus
      (160x384x384 volumes, labels 0..4, from ``--seed``), UNet_light with
      seeded weights and BatchNorm statistics saved as a checkpoint, and
@@ -19,6 +24,18 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      convs, 3 deconvs and 1 head per tile batch, the CLI's Dice lines must
      be finite, and one tile batch through the kernels must agree with the
      same net on the plain versions.
+  5. train   -- the segmentation training path: a synthetic MindBoggle-layout
+     corpus (182x218x182 volumes, 32 labels whose intensity follows the
+     label, from ``--seed``) and ``train_seg_torch.main --num-samples 21
+     --num-epochs 1``: 42 training steps at the recipe's full width
+     (UNet_light, 32 classes, bf16, crop to 168x200x168, dice, Adam), one
+     validation, a checkpoint, and ``test()``.  The launch counters must show
+     27 k3 convs (14 forward + 13 input gradients), 14 weight gradients, 3
+     deconvs and 2 head convs per training step plus 14 / 3 / 1 per
+     evaluated volume; every loss must be finite and the last 10 steps' mean
+     below the first 10's; the test dice must be finite; and one step's
+     gradients through the kernels must agree with the same step on the
+     plain versions.
 
 Then the ``nvidia-smi`` line, the kernels summary line and, last,
 ``{"ok": true, "device": {...}}``.  Run with no arguments:
@@ -51,6 +68,8 @@ KERNEL_INFO = {
                  "deepatlas_tpu/pallas/deconv3d.py:55"),
     "conv3d_point": ("deepatlas_torch/kernels/csrc/conv3d.cu",
                      "deepatlas_tpu/pallas/conv3d.py:215"),
+    "conv3d_k3_wgrad": ("deepatlas_torch/kernels/csrc/conv3d_wgrad.cu",
+                        "deepatlas_tpu/pallas/conv3d.py:359"),
 }
 
 # relative tolerances max|kernel - plain| / max|plain|: float32 differs
@@ -62,12 +81,36 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # the 18 layers (measured 9.5e-3 on an H100); float32 differs only in
 # summation order (measured 1.1e-6, so 1e-5 leaves a ninefold margin)
 NET_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# one training step's parameter gradients, kernels against plain versions,
+# per tensor relative to its largest entry.  float32 differs in summation
+# order only, amplified by the BatchNorms' rsqrt(var + eps) on the way
+# back (measured 1.7e-4 at worst on an H100).  In bfloat16 every layer's
+# output and input gradient may flip one rounding, and 18 layers compound
+# them: held in the mean over a tensor's entries (measured 4.6e-3 at worst);
+# the largest single entry (measured 1.3e-2) is reported only.  A conv or deconv
+# bias in front of a BatchNorm is left out: the batch mean removes it, so
+# its gradient is zero by construction and holds rounding noise only.
+GRAD_TOL = {"float32": 2e-3, "bfloat16_mean": 5e-2}
 
 TILE = 128
 TILE_BATCH = 4
 OAI_SHAPE = (160, 384, 384)
 N_VOLUMES = 2
 N_CLASSES = 5
+
+# the training recipe of train_seg_torch.py
+MB_SHAPE = (182, 218, 182)
+MB_CROP = (0, 10, 7, 14, 8, 7)
+TRAIN_SHAPE = tuple(MB_SHAPE[i] - MB_CROP[i] - MB_CROP[i + 3]
+                    for i in range(3))
+TRAIN_CLASSES = 32
+N_TRAIN_VOLUMES = 4
+TRAIN_STEPS = 42
+# launches of one training step / one evaluated volume
+STEP_LAUNCHES = {"conv3d_k3": 27, "deconv2x": 3, "conv3d_point": 2,
+                 "conv3d_k3_wgrad": 14}
+EVAL_LAUNCHES = {"conv3d_k3": 14, "deconv2x": 3, "conv3d_point": 1,
+                 "conv3d_k3_wgrad": 0}
 
 
 def log(obj):
@@ -82,43 +125,61 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def slice_shapes():
-    """Every (kernel, input shape, weight shape) a UNet_light tile batch
-    launches, with the launches per tile batch."""
+def unet_cases(path, batch, dhw, n_classes, train):
+    """Every launch of one UNet_light forward (and, with ``train``, of its
+    backward) on a ``(batch, *dhw, 1)`` input, as
+    ``{(path, kernel, role, batch, dhw, cin, cout): launches}``.  Roles:
+    ``forward``; ``dx`` (the same kernel on the upstream gradient, Cin and
+    Cout swapped; the first conv's input needs none); ``wgrad``."""
     from deepatlas_torch.models import (UNET_LIGHT_DECODERS,
                                         UNET_LIGHT_ENCODERS)
 
-    shapes = {}
+    cases = {}
 
-    def add(kernel, size, cin, cout):
-        key = (kernel, size, cin, cout)
-        shapes[key] = shapes.get(key, 0) + 1
+    def add(kernel, role, size, cin, cout):
+        key = (path, kernel, role, batch, size, cin, cout)
+        cases[key] = cases.get(key, 0) + 1
 
-    cin, size, skips = 1, TILE, []
+    def conv(size, cin, cout, first=False):
+        add("conv3d_k3", "forward", size, cin, cout)
+        if train:
+            add("conv3d_k3_wgrad", "wgrad", size, cin, cout)
+            if not first:
+                add("conv3d_k3", "dx", size, cout, cin)
+
+    cin, size, skips = 1, tuple(dhw), []
     for i, plan in enumerate(UNET_LIGHT_ENCODERS):
         for f in (plan if i == 0 else plan[1:]):
-            add("conv3d_k3", size, cin, f)
+            conv(size, cin, f, first=cin == 1)
             cin = f
         if i < len(UNET_LIGHT_ENCODERS) - 1:
             skips.append(cin)
-            size //= 2
+            size = tuple(n // 2 for n in size)
     for plan in UNET_LIGHT_DECODERS:
-        add("deconv2x", size, cin, plan[0])
-        size *= 2
+        add("deconv2x", "forward", size, cin, plan[0])
+        size = tuple(n * 2 for n in size)
         cin = plan[0] + skips.pop()
         for f in plan[1:]:
-            add("conv3d_k3", size, cin, f)
+            conv(size, cin, f)
             cin = f
-    add("conv3d_point", size, cin, N_CLASSES)
-    return shapes
+    add("conv3d_point", "forward", size, cin, n_classes)
+    if train:
+        add("conv3d_point", "dx", size, n_classes, cin)
+    return cases
 
 
-def work(kernel, size, cin, cout, dtype_name):
-    """(flops, bytes) the function needs: each input read once, each output
-    written once (weights as the float32 the kernels read)."""
-    n = TILE_BATCH * size ** 3
+def all_cases():
+    cases = unet_cases("serving", TILE_BATCH, (TILE,) * 3, N_CLASSES, False)
+    cases.update(unet_cases("training", 1, TRAIN_SHAPE, TRAIN_CLASSES, True))
+    return cases
+
+
+def work(kernel, n, cin, cout, dtype_name):
+    """(flops, bytes) the function needs on ``n`` voxels: each input read
+    once, each output written once (weights as the float32 the kernels
+    read; the weight gradient is written in float32)."""
     s = 2 if dtype_name == "bfloat16" else 4
-    if kernel == "conv3d_k3":
+    if kernel in ("conv3d_k3", "conv3d_k3_wgrad"):
         return 2 * 27 * cin * cout * n, n * cin * s + 27 * cin * cout * 4 \
             + n * cout * s
     if kernel == "conv3d_point":
@@ -127,8 +188,8 @@ def work(kernel, size, cin, cout, dtype_name):
         + 8 * n * cout * s
 
 
-def bound_ms(kernel, size, cin, cout, dtype_name):
-    flops, nbytes = work(kernel, size, cin, cout, dtype_name)
+def bound_ms(kernel, n, cin, cout, dtype_name):
+    flops, nbytes = work(kernel, n, cin, cout, dtype_name)
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -151,10 +212,16 @@ def cuda_ms(fn, reps, warmup=1):
 
 def library_call(kernel, x, w):
     """One PyTorch (cuDNN) call computing the same function: the yardstick
-    for ``library_ms`` only; the port never calls it."""
+    for ``library_ms`` only; the port never calls it.  For the weight
+    gradient ``w`` is the upstream gradient."""
+    import torch
     import torch.nn.functional as F
 
     xc = x.permute(0, 4, 1, 2, 3)           # NDHWC storage, NCDHW view
+    if kernel == "conv3d_k3_wgrad":
+        gc = w.permute(0, 4, 1, 2, 3)
+        size = (w.shape[-1], x.shape[-1], 3, 3, 3)
+        return lambda: torch.nn.grad.conv3d_weight(xc, size, gc, padding=1)
     wk = w.to(x.dtype)
     if kernel == "conv3d_k3":
         return lambda: F.conv3d(xc, wk.permute(4, 3, 0, 1, 2), padding=1)
@@ -164,32 +231,44 @@ def library_call(kernel, x, w):
 
 
 def check_kernels(seed):
-    """Phase 3: every kernel against its plain version at every slice shape
-    in both types.  Returns per-kernel summaries for the final line."""
+    """Phase 3: every kernel against its plain version at every shape of
+    both paths in both types.  Returns ``{kernel: {"max_abs_err", path:
+    {ms, plain_ms, library_ms, bound_ms, flops, bytes}}}`` with the bfloat16
+    totals of one unit of each path (a tile batch; a training step)."""
     import torch
 
     from deepatlas_torch.kernels import KERNELS
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "library_ms": 0.0, "flops": 0,
-                      "bytes": 0}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "flops", "bytes")
+    summary = {name: {"max_abs_err": 0.0,
+                      "serving": dict.fromkeys(keys, 0.0),
+                      "training": dict.fromkeys(keys, 0.0)}
                for name in KERNELS}
-    for (name, size, cin, cout), per_batch in slice_shapes().items():
+    for (path, name, role, batch, size, cin, cout), per_unit in \
+            all_cases().items():
         fn, plain = KERNELS[name]
-        wshape = {"conv3d_k3": (3, 3, 3, cin, cout),
-                  "deconv2x": (2, 2, 2, cin, cout),
-                  "conv3d_point": (cin, cout)}[name]
-        fan = cin * (27 if name == "conv3d_k3" else 1)
+        n = batch * int(np.prod(size))
+        big = n * max(cin, cout) > 2e8      # fewer repeats on the largest
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
-            x = (torch.rand((TILE_BATCH, size, size, size, cin),
-                            generator=gen, device="cuda") * 2 - 1).to(dtype)
-            w = torch.randn(wshape, generator=gen, device="cuda") \
-                / np.sqrt(fan)
-            bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
-            got = fn(x, w, bias)
-            ref = plain(x, w, bias)
+            x = (torch.rand((batch,) + size + (cin,), generator=gen,
+                            device="cuda") * 2 - 1).to(dtype)
+            if name == "conv3d_k3_wgrad":
+                second = (torch.rand((batch,) + size + (cout,), generator=gen,
+                                     device="cuda") * 2 - 1).to(dtype)
+                args = timed_args = (x, second)
+            else:
+                wshape = {"conv3d_k3": (3, 3, 3, cin, cout),
+                          "deconv2x": (2, 2, 2, cin, cout),
+                          "conv3d_point": (cin, cout)}[name]
+                fan = cin * (27 if name == "conv3d_k3" else 1)
+                second = torch.randn(wshape, generator=gen, device="cuda") \
+                    / np.sqrt(fan)
+                bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+                args, timed_args = (x, second, bias), (x, second)
+            got = fn(*args)
+            ref = plain(*args)
             torch.cuda.synchronize()
             if got.shape != ref.shape or got.dtype != ref.dtype:
                 raise AssertionError(f"{name} {tuple(x.shape)}: kernel gives "
@@ -197,33 +276,38 @@ def check_kernels(seed):
                                      f"{tuple(ref.shape)} {ref.dtype}")
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
-            ok = bool(np.isfinite(err)) and err <= TOL[dname] * scale
-            ms = cuda_ms(lambda: fn(x, w), reps=5)
-            plain_ms = cuda_ms(lambda: plain(x, w), reps=2)
-            lib_ms = cuda_ms(library_call(name, x, w), reps=5)
-            bms, bound_by = bound_ms(name, size, cin, cout, dname)
-            log({"phase": "kernels", "kernel": name, "dtype": dname,
-                 "x": list(x.shape), "w": list(wshape),
-                 "launches_per_tile_batch": per_batch,
+            # the weight gradient is float32 from the same float32 products
+            # in both types (bf16 products are exact in float32)
+            tol = TOL["float32"] if name == "conv3d_k3_wgrad" else TOL[dname]
+            ok = bool(np.isfinite(err)) and err <= tol * scale
+            del got, ref
+            ms = cuda_ms(lambda: fn(*timed_args), reps=3 if big else 5)
+            plain_ms = cuda_ms(lambda: plain(*timed_args),
+                               reps=1 if big else 2, warmup=0 if big else 1)
+            lib_ms = cuda_ms(library_call(name, x, second),
+                             reps=3 if big else 5)
+            bms, bound_by = bound_ms(name, n, cin, cout, dname)
+            log({"phase": "kernels", "path": path, "kernel": name,
+                 "role": role, "dtype": dname, "x": list(x.shape),
+                 "cin": cin, "cout": cout, "launches_per_unit": per_unit,
                  "max_abs_err": err, "max_abs_ref": scale,
-                 "rel_tol": TOL[dname], "ok": ok, "kernel_ms": ms,
+                 "rel_tol": tol, "ok": ok, "kernel_ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
                  "bound_ms": bms, "bound_by": bound_by})
             if not ok:
-                raise AssertionError(f"{name} {dname} {tuple(x.shape)} -> "
-                                     f"{cout}: max|k-p| {err} > "
-                                     f"{TOL[dname]} * {scale}")
-            s = summary[name]
-            s["max_abs_err"] = max(s["max_abs_err"], err)
-            if dname == "bfloat16":   # the main path's type, per tile batch
-                flops, nbytes = work(name, size, cin, cout, dname)
-                s["ms"] += per_batch * ms
-                s["plain_ms"] += per_batch * plain_ms
-                s["library_ms"] += per_batch * lib_ms
-                s["bound_ms"] += per_batch * bms
-                s["flops"] += per_batch * flops
-                s["bytes"] += per_batch * nbytes
-            del x, w, bias, got, ref
+                raise AssertionError(f"{name} {role} {dname} "
+                                     f"{tuple(x.shape)} -> {cout}: max|k-p| "
+                                     f"{err} > {tol} * {scale}")
+            summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
+                                               err)
+            if dname == "bfloat16":       # the main paths' type, per unit
+                flops, nbytes = work(name, n, cin, cout, dname)
+                tot = summary[name][path]
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib_ms), ("bound_ms", bms),
+                                 ("flops", flops), ("bytes", nbytes)):
+                    tot[key] += per_unit * val
+            del x, second, args, timed_args
     torch.cuda.empty_cache()
     return summary
 
@@ -391,8 +475,7 @@ def run_main_path(seed, workdir):
     eff = TILE - 2 * 16
     n_tiles = int(np.prod([-(-s // eff) for s in OAI_SHAPE]))
     batches = N_VOLUMES * -(-n_tiles // TILE_BATCH)
-    want = {"conv3d_k3": 14 * batches, "deconv2x": 3 * batches,
-            "conv3d_point": 1 * batches}
+    want = {k: v * batches for k, v in EVAL_LAUNCHES.items()}
     log({"phase": "main", "volumes": N_VOLUMES, "volume_shape": OAI_SHAPE,
          "tiles_per_volume": n_tiles, "tile_batches": batches,
          "launches": counts, "launches_expected": want,
@@ -427,6 +510,303 @@ def run_main_path(seed, workdir):
     log({"phase": "main_check", "tile_batch_forward_ms_bf16": fwd_ms,
          "stage_s": stages, "logits_vs_plain": agree,
          "mean_dice": means[0]})
+    return counts
+
+
+def write_mindboggle_corpus(root, seed, shape=MB_SHAPE,
+                            n_train=N_TRAIN_VOLUMES):
+    """Synthetic MindBoggle-layout corpus under ``root/mindboggle``: each
+    volume is a 4 x 4 x 2 grid of blocks labelled 0..31 (block borders
+    jittered per volume) whose intensity follows the label, plus noise, so a
+    few dozen steps learn it.  Name lists as ``train_seg_torch.py`` expects
+    them: the first ``n_train`` volumes train, the last one validates and
+    tests."""
+    from deepatlas_torch.data import write_nifti
+
+    rng = np.random.RandomState(seed)
+    mb = os.path.join(root, "mindboggle")
+    img_dir = os.path.join(mb, "image_in_MNI152_normalized")
+    seg_dir = os.path.join(mb, "label_31_reID_merged")
+    os.makedirs(img_dir)
+    os.makedirs(seg_dir)
+    names = [f"synth_{v}" for v in range(n_train + 1)]
+    for name in names:
+        index = []
+        for n, blocks in zip(shape, (4, 4, 2)):
+            cuts = (np.arange(1, blocks) / blocks
+                    + rng.uniform(-0.04, 0.04, blocks - 1)) * n
+            index.append(np.searchsorted(cuts, np.arange(n)))
+        seg = ((index[0][:, None, None] * 4 + index[1][None, :, None]) * 2
+               + index[2][None, None, :]).astype(np.uint8)
+        img = ((seg.astype(np.float32) + 1) / (TRAIN_CLASSES + 1)
+               + 0.005 * rng.standard_normal(shape).astype(np.float32))
+        write_nifti(os.path.join(img_dir, f"{name}.nii.gz"), img)
+        write_nifti(os.path.join(seg_dir, f"{name}.nii.gz"), seg)
+    lists = {"MMRR-21-flip.txt": names[:n_train],
+             "NKI-RS-21-valid.txt": names[n_train:],
+             "NKI-RS-21-train.txt": names[n_train:]}
+    for fname, members in lists.items():
+        with open(os.path.join(mb, fname), "w") as f:
+            f.write("".join(f"{n}\n" for n in members))
+    return names
+
+
+@contextlib.contextmanager
+def plain_math():
+    """Run the wrappers' autograd Functions on the plain versions' math on
+    the card (for the comparison only: nothing in the port does this)."""
+    from deepatlas_torch.kernels import conv3d, deconv3d
+
+    with mock.patch.object(conv3d, "_k3_cuda", conv3d._k3_math), \
+            mock.patch.object(conv3d, "_wgrad_cuda", conv3d._wgrad_math), \
+            mock.patch.object(conv3d, "_point_cuda", conv3d._point_math), \
+            mock.patch.object(deconv3d, "_deconv_cuda",
+                              deconv3d._deconv_math):
+        yield
+
+
+class StepRecorder:
+    """Wraps the experiment's step factories to record, per training step,
+    its loss, its seconds (synchronised) and the kernels it launched, and
+    per evaluated volume its launches."""
+
+    def __init__(self):
+        self.losses, self.seconds, self.step_launches = [], [], []
+        self.eval_launches = []
+        self.first_start = self.last_end = None
+
+    def _delta(self, before):
+        from deepatlas_torch.kernels import launch_counts
+
+        return {k: v - before[k] for k, v in launch_counts().items()}
+
+    def train_factory(self, make):
+        import torch
+
+        from deepatlas_torch.kernels import launch_counts
+
+        def factory(criterion):
+            step = make(criterion)
+
+            def recorded(state, images, labels):
+                before = launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if self.first_start is None:
+                    self.first_start = t0
+                out = step(state, images, labels)
+                torch.cuda.synchronize()
+                self.last_end = time.perf_counter()
+                self.seconds.append(self.last_end - t0)
+                self.losses.append(float(out[1]))
+                self.step_launches.append(self._delta(before))
+                return out
+
+            return recorded
+
+        return factory
+
+    def eval_factory(self, make):
+        from deepatlas_torch.kernels import launch_counts
+
+        def factory(n_class):
+            step = make(n_class)
+
+            def recorded(state, images, labels):
+                before = launch_counts()
+                out = step(state, images, labels)
+                self.eval_launches.append(self._delta(before))
+                return out
+
+            return recorded
+
+        return factory
+
+
+def step_breakdown(model, criterion, optimizer, x, y):
+    """Seconds of one synchronised training step, split into forward (with
+    the loss), backward and optimizer."""
+    import torch
+
+    out = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+
+    def lap(key):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[key] = now - t
+        t = now
+
+    optimizer.zero_grad(set_to_none=True)
+    loss = criterion(model(x, train=True).float(), y)
+    lap("forward_and_loss")
+    loss.backward()
+    lap("backward")
+    optimizer.step()
+    lap("optimizer")
+    return out
+
+
+def step_gradients(model, criterion, x, y):
+    """Parameter gradients of one training step (BatchNorm statistics are
+    put back, so repeated calls start from the same state)."""
+    import torch
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    model.zero_grad(set_to_none=True)
+    loss = criterion(model(x, train=True).float(), y)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(saved)
+    return loss.item(), grads
+
+
+def run_train_path(seed, workdir):
+    import torch
+
+    import train_seg_torch
+    from deepatlas_torch.data import (Compose, CropVolume, VolumeToArray,
+                                      get_seg_dataset)
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.models import get_network
+    from deepatlas_torch.train import (load_checkpoint, make_optimizer,
+                                       segmentation)
+
+    t0 = time.perf_counter()
+    names = write_mindboggle_corpus(workdir, seed)
+    setup_s = time.perf_counter() - t0
+
+    argv = ["--data-root", workdir, "--log-root", "logs", "--num-samples",
+            "21", "--num-epochs", "1", "--device", "cuda"]
+    rec = StepRecorder()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(workdir), contextlib.redirect_stdout(out), \
+            mock.patch.object(segmentation, "make_seg_train_step",
+                              rec.train_factory(
+                                  segmentation.make_seg_train_step)), \
+            mock.patch.object(segmentation, "make_seg_eval_step",
+                              rec.eval_factory(
+                                  segmentation.make_seg_eval_step)):
+        dice_per_class, dice_avg = train_seg_torch.main(argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_eval = len(rec.eval_launches)
+    want = {k: TRAIN_STEPS * STEP_LAUNCHES[k] + n_eval * EVAL_LAUNCHES[k]
+            for k in STEP_LAUNCHES}
+    run_dirs = [os.path.join(dp, "checkpoint")
+                for dp, _, files in os.walk(os.path.join(workdir, "logs"))
+                if "checkpoint" in files]
+    warm = sorted(rec.seconds[2:])
+    train_wall = rec.last_end - rec.first_start
+    log({"phase": "train", "volume_shape": MB_SHAPE,
+         "train_shape": TRAIN_SHAPE, "n_classes": TRAIN_CLASSES,
+         "train_volumes": N_TRAIN_VOLUMES, "steps": len(rec.losses),
+         "evaluated_volumes": n_eval, "launches": counts,
+         "launches_expected": want, "launches_per_step": STEP_LAUNCHES,
+         "losses": rec.losses,
+         "loss_first10_mean": float(np.mean(rec.losses[:10])),
+         "loss_last10_mean": float(np.mean(rec.losses[-10:])),
+         "first_steps_s": rec.seconds[:2],
+         "step_s_median": warm[len(warm) // 2], "step_s_min": warm[0],
+         "step_s_max": warm[-1],
+         "volumes_per_s_in_steps": 1.0 / (sum(warm) / len(warm)),
+         "volumes_per_s_with_loading": len(rec.losses) / train_wall,
+         "setup_s": setup_s, "cli_s": total_s,
+         "max_memory_allocated": peak, "test_dice_avg": float(dice_avg),
+         "checkpoints": [os.path.relpath(d, workdir) for d in run_dirs],
+         "cli_tail": out.getvalue().splitlines()[-6:]})
+    if len(rec.losses) != TRAIN_STEPS or n_eval != 2:
+        raise AssertionError(f"{len(rec.losses)} steps and {n_eval} "
+                             f"evaluated volumes, expected {TRAIN_STEPS}, 2")
+    for i, got in enumerate(rec.step_launches):
+        if got != STEP_LAUNCHES:
+            raise AssertionError(f"step {i} launched {got}, expected "
+                                 f"{STEP_LAUNCHES}")
+    for got in rec.eval_launches:
+        if got != EVAL_LAUNCHES:
+            raise AssertionError(f"an evaluation launched {got}, expected "
+                                 f"{EVAL_LAUNCHES}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if not np.all(np.isfinite(rec.losses)):
+        raise AssertionError(f"non-finite loss in {rec.losses}")
+    if not np.mean(rec.losses[-10:]) < np.mean(rec.losses[:10]):
+        raise AssertionError(f"the loss did not fall: {rec.losses}")
+    if len(run_dirs) != 1:
+        raise AssertionError(f"expected one checkpoint, found {run_dirs}")
+    if dice_per_class.shape != (TRAIN_CLASSES - 1,) \
+            or not np.all(np.isfinite(dice_per_class)):
+        raise AssertionError(f"bad test dice {dice_per_class}")
+
+    # one more step by hand on the trained state: where its time goes, and
+    # its gradients through the kernels against the plain versions
+    mb = os.path.join(workdir, "mindboggle")
+    dataset = get_seg_dataset("MindBoggle")(
+        os.path.join(mb, "MMRR-21-flip.txt"), mb, pre_transform=Compose(
+            [VolumeToArray(), CropVolume(MB_CROP)]))
+    sample = dataset[0]
+    x = torch.from_numpy(np.ascontiguousarray(sample["image"])[None]).cuda()
+    y = torch.from_numpy(np.ascontiguousarray(
+        sample["segmentation"])[None]).cuda()
+    model = get_network("UNet_light")(in_channel=1, n_classes=TRAIN_CLASSES,
+                                      bias=True, BN=True,
+                                      dtype=torch.bfloat16)
+    model.load_state_dict(load_checkpoint(run_dirs[0])["model"])
+    model.cuda()
+    criterion = get_loss_function("dice")(
+        n_class=TRAIN_CLASSES, weight_type="Uniform", no_bg=False,
+        softmax=True, eps=1e-6)
+    optimizer = make_optimizer(model, 1e-3)
+    step_breakdown(model, criterion, optimizer, x, y)       # warm-up
+    split = step_breakdown(model, criterion, optimizer, x, y)
+
+    agree = {}
+    for dtype in (torch.bfloat16, None):
+        model.dtype = dtype
+        dname = "bfloat16" if dtype else "float32"
+        loss_k, got = step_gradients(model, criterion, x, y)
+        with plain_math():
+            loss_p, ref = step_gradients(model, criterion, x, y)
+        worst_max, worst_mean = (0.0, ""), (0.0, "")
+        for name, r in ref.items():
+            if name.endswith(".bias") and ".bn." not in name \
+                    and not name.startswith("head."):
+                continue        # in front of a BatchNorm: noise only
+            scale = r.abs().max().item()
+            diff = (got[name] - r).abs()
+            if not torch.isfinite(diff).all():
+                raise AssertionError(f"non-finite gradient in {name}")
+            worst_max = max(worst_max, (diff.max().item() / scale, name))
+            worst_mean = max(worst_mean, (diff.mean().item() / scale, name))
+        agree[dname] = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                        "worst_max_rel": worst_max,
+                        "worst_mean_rel": worst_mean}
+        if dtype is None:
+            agree[dname]["rel_tol_max"] = GRAD_TOL["float32"]
+            bad = worst_max[0] > GRAD_TOL["float32"]
+        else:
+            agree[dname]["rel_tol_mean"] = GRAD_TOL["bfloat16_mean"]
+            bad = worst_mean[0] > GRAD_TOL["bfloat16_mean"]
+        agree[dname]["ok"] = not (bad or abs(loss_k - loss_p)
+                                  > NET_TOL[dname])
+    log({"phase": "train_check", "step_split_s": split,
+         "gradients_vs_plain": agree, "volume": names[0]})
+    if not all(a["ok"] for a in agree.values()):
+        raise AssertionError(f"step gradients disagree: {agree}")
     return counts
 
 
@@ -466,28 +846,46 @@ def main(argv=None):
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "per_source_s": seconds, "ptxas": ptxas})
 
-    summary = check_kernels(args.seed)
+    with torch.no_grad():
+        summary = check_kernels(args.seed)
 
     with tempfile.TemporaryDirectory() as workdir:
-        counts = run_main_path(args.seed, workdir)
+        serving = run_main_path(args.seed, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        training = run_train_path(args.seed, workdir)
 
     kernels = []
     for name, s in summary.items():
         src, replaces = KERNEL_INFO[name]
-        t_ops = s["flops"] / PEAK_FLOPS["bfloat16"]
-        t_bytes = s["bytes"] / HBM_BYTES_PER_S
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": s["library_ms"]})
+        paths = {path: s[path] for path in ("serving", "training")}
+        flops = sum(p["flops"] for p in paths.values())
+        nbytes = sum(p["bytes"] for p in paths.values())
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces,
+                 "launches": serving[name] + training[name],
+                 "max_abs_err": s["max_abs_err"]}
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            entry[key] = sum(p[key] for p in paths.values())
+        entry["bound_by"] = "operations" \
+            if flops / PEAK_FLOPS["bfloat16"] >= nbytes / HBM_BYTES_PER_S \
+            else "bytes"
+        entry["serving"] = dict(
+            {k: paths["serving"][k]
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            launches=serving[name])
+        entry["training"] = dict(
+            {k: paths["training"][k]
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            launches=training[name])
+        kernels.append(entry)
     print(nvidia_smi(), flush=True)
     log({"kernels": kernels,
          "note": "ms, plain_ms, library_ms and bound_ms are bfloat16 totals "
-                 "over one tile batch (4 x 128^3) of UNet_light; "
-                 "max_abs_err is the largest over every shape and type"})
+                 "over one tile batch (4 x 128^3) of the serving path plus "
+                 "one training step (168x200x168, 32 classes) of "
+                 "UNet_light, split under 'serving' and 'training'; "
+                 "launches are the two main paths' runs; max_abs_err is "
+                 "the largest over every shape and type"})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -2,13 +2,15 @@
 (numpy only)."""
 from .datasets import (SegDataset, SegDataSetBrains, SegDataSetMindBoggle,
                        SegDataSetOAIZIB, SegDataSetOASIS, get_seg_dataset)
-from .loader import DataLoader
+from .loader import DataLoader, endless
 from .nifti import NiftiImage, read_nifti, write_nifti
-from .transforms import Compose, LeftToRight, Partition, VolumeToArray
+from .transforms import (Compose, CropVolume, LeftToRight, Partition,
+                         VolumeToArray)
 
 __all__ = [
     "NiftiImage", "read_nifti", "write_nifti",
     "SegDataset", "SegDataSetBrains", "SegDataSetMindBoggle",
     "SegDataSetOAIZIB", "SegDataSetOASIS", "get_seg_dataset",
-    "DataLoader", "Compose", "LeftToRight", "Partition", "VolumeToArray",
+    "DataLoader", "endless", "Compose", "CropVolume", "LeftToRight",
+    "Partition", "VolumeToArray",
 ]

@@ -202,3 +202,10 @@ class DataLoader:
         finally:
             stop.set()
             t.join(timeout=60)
+
+
+def endless(loader: DataLoader) -> Iterator[dict]:
+    """Cycle a loader forever (one training epoch draws a fixed number of
+    batches, whatever the dataset's length)."""
+    while True:
+        yield from loader

@@ -1,4 +1,4 @@
-"""Host-side data transforms (numpy) on the inference path.
+"""Host-side data transforms (numpy).
 
 Arrays are in ``(z, y, x)`` = (D, H, W) index order with channel-last
 images, as in ``deepatlas_tpu.data.transforms``:
@@ -6,6 +6,7 @@ images, as in ``deepatlas_tpu.data.transforms``:
   * ``VolumeToArray`` -- clamp the image to [0, 1] float32 with a trailing
     channel axis; segmentation to uint8.
   * ``LeftToRight``   -- OAI left-knee flip.
+  * ``CropVolume``    -- border crop (the MindBoggle training recipe).
   * ``Partition``     -- overlap-tile partition + ``assemble`` (center
     stitch or per-label voting) for sliding-window inference.
   * ``Compose``.
@@ -63,6 +64,32 @@ class LeftToRight:
             seg = sample.get("segmentation")
             if seg is not None:
                 sample["segmentation"] = np.flip(seg, axis=0).copy()
+        return sample
+
+
+class CropVolume:
+    """Crop borders; ``crop_size`` is (d, h, w) symmetric or
+    (d_lo, h_lo, w_lo, d_hi, h_hi, w_hi)."""
+
+    def __init__(self, crop_size: Sequence[int]):
+        crop_size = list(crop_size)
+        if len(crop_size) == 3:
+            self.crop = crop_size + crop_size
+        elif len(crop_size) == 6:
+            self.crop = crop_size
+        else:
+            raise ValueError("crop size should be of length 3 or 6, but "
+                             f"{len(crop_size)} is given")
+
+    def __call__(self, sample):
+        c = self.crop
+        img = sample["image"]
+        d, h, w = img.shape[:3]
+        sl = (slice(c[0], d - c[3]), slice(c[1], h - c[4]),
+              slice(c[2], w - c[5]))
+        sample["image"] = img[sl]
+        if sample.get("segmentation") is not None:
+            sample["segmentation"] = sample["segmentation"][sl]
         return sample
 
 

@@ -8,14 +8,17 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .conv3d import conv3d_k3, conv3d_k3_plain, conv3d_point, conv3d_point_plain
+from .conv3d import (conv3d_k3, conv3d_k3_plain, conv3d_k3_wgrad,
+                     conv3d_k3_wgrad_plain, conv3d_point, conv3d_point_plain)
 from .deconv3d import deconv2x, deconv2x_plain
 
-# wrapper -> its plain version, in the order the U-Net first launches them
+# wrapper -> its plain version, in the order a training step of the U-Net
+# first launches them
 KERNELS = {
     "conv3d_k3": (conv3d_k3, conv3d_k3_plain),
     "deconv2x": (deconv2x, deconv2x_plain),
     "conv3d_point": (conv3d_point, conv3d_point_plain),
+    "conv3d_k3_wgrad": (conv3d_k3_wgrad, conv3d_k3_wgrad_plain),
 }
 
 
@@ -29,6 +32,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "conv3d_k3", "conv3d_k3_plain", "conv3d_point",
-           "conv3d_point_plain", "deconv2x", "deconv2x_plain",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "conv3d_k3", "conv3d_k3_plain", "conv3d_k3_wgrad",
+           "conv3d_k3_wgrad_plain", "conv3d_point", "conv3d_point_plain",
+           "deconv2x", "deconv2x_plain", "launch_counts",
+           "reset_launch_counts"]

@@ -14,6 +14,12 @@ output values it writes.  The CUDA design is described in
 The wrapper dispatches on the input's device only (CPU: the plain version;
 CUDA: the kernel, or it raises); ``deconv2x.launches`` counts launches.
 Types as in ``kernels/conv3d.py``.
+
+Gradient: ``deconv2x`` is a ``torch.autograd.Function``.  Its backward
+regroups the upstream gradient to ``(voxels, 8*Cout)``, one row per input
+voxel, and takes ``dx`` and ``dW`` as two plain matrix products -- as the
+JAX package does (``packed_deconv2x``'s ``op_bwd`` is two XLA
+``dot_general``s, no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from typing import Optional
 import torch
 
 from . import build
-from .conv3d import _DTYPES, _ptr, check_operands, kernel_operands
+from .conv3d import (_DTYPES, _ptr, bias_grad, check_operands,
+                     kernel_operands, upstream, voxel_product)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -31,36 +38,21 @@ _SIGNATURES = {
 }
 
 
-def deconv2x_plain(x: torch.Tensor, w: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _deconv_math(x, wk, bk):
     """k2 s2 transposed conv as one contraction over the 8 taps, then an
-    interleave of the taps into the doubled grid (no cuDNN)."""
+    interleave of the taps into the doubled grid (no cuDNN), on weights
+    already rounded by ``kernel_operands``."""
     b, d, h, wd, _ = x.shape
-    wk, bk = kernel_operands(x, w, bias)
     y = torch.einsum("bdhwi,apqio->bdahpwqo", x.float(), wk)
-    y = y.reshape(b, 2 * d, 2 * h, 2 * wd, w.shape[-1])
+    y = y.reshape(b, 2 * d, 2 * h, 2 * wd, wk.shape[-1])
     if bk is not None:
         y += bk
     return y.to(x.dtype)
 
 
-def deconv2x(x: torch.Tensor, w: torch.Tensor,
-             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """ConvTranspose3d(kernel 2, stride 2) on channel-last tensors.
-
-    Args:
-      x: ``(B, D, H, W, Cin)`` float32 or bfloat16, contiguous.
-      w: ``(2, 2, 2, Cin, Cout)``.
-      bias: optional ``(Cout,)``.
-
-    Returns ``(B, 2D, 2H, 2W, Cout)`` in x's type.
-    """
-    check_operands(x, w, bias, (2, 2, 2), "deconv2x")
-    if x.device.type == "cpu":
-        return deconv2x_plain(x, w, bias)
-    wk, bk = kernel_operands(x, w, bias)
+def _deconv_cuda(x, wk, bk):
     b, d, h, wd, cin = x.shape
-    cout = w.shape[-1]
+    cout = wk.shape[-1]
     y = torch.empty(b, 2 * d, 2 * h, 2 * wd, cout, dtype=x.dtype,
                     device=x.device)
     lib = build.load("deconv3d", _SIGNATURES)
@@ -72,6 +64,62 @@ def deconv2x(x: torch.Tensor, w: torch.Tensor,
     build.check(rc, "deconv2x")
     deconv2x.launches += 1
     return y
+
+
+def _deconv_op(x, wk, bk):
+    return _deconv_math(x, wk, bk) if x.device.type == "cpu" \
+        else _deconv_cuda(x, wk, bk)
+
+
+def deconv2x_plain(x: torch.Tensor, w: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``deconv2x`` (forward only)."""
+    return _deconv_math(x, *kernel_operands(x, w, bias))
+
+
+class _Deconv2x(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        wk, bk = kernel_operands(x, w, bias)
+        ctx.save_for_backward(x, wk)
+        ctx.has_bias = bias is not None
+        return _deconv_op(x, wk, bk)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wk = ctx.saved_tensors
+        g = upstream(g, x)
+        b, d, h, wd, cin = x.shape
+        cout = wk.shape[-1]
+        # (B, 2D, 2H, 2W, Co) -> one row of the 8 taps per input voxel
+        go = g.view(b, d, 2, h, 2, wd, 2, cout).permute(
+            0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, 8 * cout)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            w2 = wk.permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
+            dx = (go @ w2.to(x.dtype).t()).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = voxel_product(x, go).view(cin, 2, 2, 2, cout).permute(
+                1, 2, 3, 0, 4).contiguous()
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = bias_grad(g)
+        return dx, dw, db
+
+
+def deconv2x(x: torch.Tensor, w: torch.Tensor,
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ConvTranspose3d(kernel 2, stride 2) on channel-last tensors;
+    differentiable in x, w and bias.
+
+    Args:
+      x: ``(B, D, H, W, Cin)`` float32 or bfloat16, contiguous.
+      w: ``(2, 2, 2, Cin, Cout)``.
+      bias: optional ``(Cout,)``.
+
+    Returns ``(B, 2D, 2H, 2W, Cout)`` in x's type.
+    """
+    check_operands(x, w, bias, (2, 2, 2), "deconv2x")
+    return _Deconv2x.apply(x, w, bias)
 
 
 deconv2x.launches = 0

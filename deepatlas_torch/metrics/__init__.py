@@ -1,4 +1,5 @@
 """Segmentation metrics."""
-from .confusion import confusion_matrix, dice_from_confusion
+from .confusion import (confusion_matrix, dice_from_confusion,
+                        multiclass_dice)
 
-__all__ = ["confusion_matrix", "dice_from_confusion"]
+__all__ = ["confusion_matrix", "dice_from_confusion", "multiclass_dice"]

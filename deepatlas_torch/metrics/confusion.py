@@ -36,3 +36,17 @@ def dice_from_confusion(cm: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     fn = cm.sum(dim=1) - tp
     fp = cm.sum(dim=0) - tp
     return (2 * tp) / (2 * tp + fn + fp + eps)
+
+
+def multiclass_dice(pred: torch.Tensor, truth: torch.Tensor, n_class: int,
+                    eps: float = 1e-11) -> torch.Tensor:
+    """Per-class foreground dice (classes 1..n-1) for a batch.
+
+    Args:
+      pred, truth: ``(B, D, H, W)`` integer masks.
+
+    Returns ``(B, n_class - 1)`` dice scores.
+    """
+    return torch.stack([
+        dice_from_confusion(confusion_matrix(p, t, n_class), eps)[1:]
+        for p, t in zip(pred, truth)])

@@ -10,13 +10,16 @@ from __future__ import annotations
 
 from functools import partial
 
-from .convert import unet_from_flax
+import torch
+
+from .convert import adam_from_optax, unet_from_flax
 from .layers import BatchNorm, ConvBlock, DeconvBlock, max_pool_3d
 from .unet import UNetTemplate
 
-__all__ = ["BatchNorm", "ConvBlock", "DeconvBlock", "UNetLight",
+__all__ = ["adam_from_optax", "BatchNorm", "ConvBlock", "DeconvBlock", "UNetLight",
            "UNetTemplate", "get_available_networks", "get_network",
-           "max_pool_3d", "network_dic", "unet_from_flax"]
+           "max_pool_3d", "network_dic", "resolve_model_settings",
+           "unet_from_flax"]
 
 # the UNet_light channel plan
 UNET_LIGHT_ENCODERS = ((8, 16), (16, 16, 32), (32, 32, 64), (64, 64, 64))
@@ -48,3 +51,15 @@ def get_network(network_name: str):
 
 def get_available_networks():
     return tuple(network_dic.keys())
+
+
+def resolve_model_settings(settings: dict) -> dict:
+    """Make JSON-borne model settings constructor-ready: the config
+    snapshot stores ``dtype`` as a string ("bfloat16" / "float32"); convert
+    it to the torch dtype the modules expect."""
+    out = dict(settings)
+    dt = out.get("dtype")
+    if isinstance(dt, str):
+        out["dtype"] = {"bfloat16": torch.bfloat16,
+                        "float32": torch.float32}[dt]
+    return out

@@ -1,4 +1,5 @@
-"""Convert the JAX package's U-Net variables into this package's state_dict.
+"""Convert the JAX package's U-Net variables and optimizer state into this
+package's state_dicts.
 
 The JAX ``UNetTemplate`` stores one of two parameter trees:
 
@@ -15,6 +16,10 @@ Flax numbers modules per class in creation order: encoder chains top-down,
 then per decoder level its upsampler and its conv chain, then the head
 (``deepatlas_tpu/models/packed.py::transfer_unet_params`` walks the same
 order).  Variables arrive as nested dicts of arrays; only numpy is used.
+
+The mapping is a pure relabelling (plus the standard deconv's transpose), so
+it carries any tree shaped like the parameters: gradients, and the ``mu`` /
+``nu`` moments of the JAX package's Adam (``adam_from_optax``).
 """
 from __future__ import annotations
 
@@ -75,19 +80,23 @@ def _block_entry(params: dict, stats: dict, name: str) -> Dict[str, np.ndarray]:
     if bn is not None:
         out["bn.weight"] = _np(bn["scale"])
         out["bn.bias"] = _np(bn["bias"])
-        out["bn.running_mean"] = _np(bn_stats["mean"])
-        out["bn.running_var"] = _np(bn_stats["var"])
+        if bn_stats is not None:
+            out["bn.running_mean"] = _np(bn_stats["mean"])
+            out["bn.running_var"] = _np(bn_stats["var"])
     return out
 
 
-def unet_from_flax(variables: dict, model) -> Dict[str, torch.Tensor]:
+def unet_from_flax(variables: dict, model,
+                   params_only: bool = False) -> Dict[str, torch.Tensor]:
     """State dict of ``model`` (a ``UNetTemplate``) from the JAX U-Net's
     ``{'params': ..., ['batch_stats': ...]}``, standard or packed tree.
+    With ``params_only`` the result holds the parameters' names only (no
+    BatchNorm statistics): the form for a gradient or optimizer-moment tree.
 
     Raises ``ValueError`` when the tree does not fit the model's plan.
     """
     params = variables["params"]
-    stats = variables.get("batch_stats", {}) or {}
+    stats = {} if params_only else variables.get("batch_stats", {}) or {}
     keys = set(params)
     candidates = [None] + list(range(1, len(model.encoders)))
     for nl in candidates:
@@ -119,7 +128,8 @@ def unet_from_flax(variables: dict, model) -> Dict[str, torch.Tensor]:
     if "bias" in head_entry:
         sd["head.bias"] = head_entry["bias"]
 
-    ref = model.state_dict()
+    ref = dict(model.named_parameters()) if params_only \
+        else model.state_dict()
     if set(sd) != set(ref):
         raise ValueError(f"converted keys differ from the model's: missing "
                          f"{sorted(set(ref) - set(sd))}, extra "
@@ -131,3 +141,33 @@ def unet_from_flax(variables: dict, model) -> Dict[str, torch.Tensor]:
                              f"has {tuple(ref[k].shape)}")
         out[k] = torch.from_numpy(np.ascontiguousarray(v))
     return out
+
+
+def _field(node, name):
+    """``name`` of an optax state node: a namedtuple as optax builds it, or
+    the dict a checkpoint restores it as."""
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def adam_from_optax(opt_state, model) -> dict:
+    """A ``torch.optim.Adam`` state dict for ``model`` from the state of the
+    JAX package's optimizer, ``optax.inject_hyperparams(optax.adam)``
+    (``deepatlas_tpu/train/steps.py::make_optimizer``): its first moments
+    ``mu`` become ``exp_avg``, its second moments ``nu`` ``exp_avg_sq``, its
+    ``count`` every parameter's ``step``, and its injected learning rate the
+    group's ``lr``.  ``opt_state`` holds numpy arrays, as optax's
+    namedtuples or as the nested dicts and lists a checkpoint restores.
+    """
+    adam = _field(opt_state, "inner_state")[0]
+    count = float(np.asarray(_field(adam, "count")))
+    lr = float(np.asarray(_field(opt_state, "hyperparams")["learning_rate"]))
+    mu = unet_from_flax({"params": _field(adam, "mu")}, model,
+                        params_only=True)
+    nu = unet_from_flax({"params": _field(adam, "nu")}, model,
+                        params_only=True)
+    sd = torch.optim.Adam(model.parameters(), lr=lr).state_dict()
+    sd["state"] = {
+        i: {"step": torch.tensor(count), "exp_avg": mu[name],
+            "exp_avg_sq": nu[name]}
+        for i, (name, _) in enumerate(model.named_parameters())}
+    return sd

@@ -47,14 +47,25 @@ def glorot_normal_(w: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Per-channel BatchNorm, inference only: the affine map from the
-    running statistics (eps 1e-5), as the JAX modules apply it with
-    ``train=False``.  Training statistics come with the segmentation
-    training port."""
+    """Per-channel BatchNorm over ``(B, D, H, W)`` of a channel-last tensor,
+    with the semantics of the JAX package's ``PackedBatchNorm`` and flax's
+    ``nn.BatchNorm`` (eps 1e-5, momentum 0.9).
 
-    def __init__(self, c: int, eps: float = 1e-5):
+    ``train=False`` applies the affine map from the running statistics.
+    ``train=True`` normalizes with the batch moments, taken in float32 from
+    the compute-type input as ``var = max(E[x^2] - mean^2, 0)`` (the biased
+    variance), and moves the running statistics by ``ra <- 0.9 ra + 0.1
+    batch`` with that same biased variance (``torch.nn.BatchNorm3d`` would
+    store the unbiased one and counts its momentum the other way round).
+    The moments are plain tensor ops, so autograd differentiates through
+    them.  In both modes the scale ``mul`` and shift ``add`` are rounded to
+    the compute type and the map is ``x * mul + add``.
+    """
+
+    def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -62,11 +73,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (segmentation "
-                "training slice, see ROADMAP.md)")
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        add = self.bias - self.running_mean * mul
+            xf = x.float()
+            mean = xf.mean(dim=(0, 1, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 1, 2, 3)) - mean * mean).clamp(
+                min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(
+                    mean, alpha=1 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(
+                    var, alpha=1 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        add = self.bias - mean * mul
         return x * mul.to(x.dtype) + add.to(x.dtype)
 
 

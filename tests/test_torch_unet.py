@@ -6,6 +6,8 @@ BatchNorm affine and running statistics) are converted with
 ``transfer_unet_params`` derives from it, and both nets run the same input
 in eval mode.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -132,9 +134,27 @@ def test_registry_and_param_count(nets):
 
 
 def test_train_mode_and_bad_trees_raise(nets):
-    x, _, variables, model = nets
-    with pytest.raises(NotImplementedError, match="train-mode BatchNorm"):
-        model(torch.from_numpy(x), train=True)
+    """Train mode runs on the batch statistics, matches the JAX model's
+    train-mode logits and moves the running statistics as flax does; trees
+    that do not fit the model raise."""
+    x, jax_model, variables, model = nets
+    twin = copy.deepcopy(model)
+    out = twin(torch.from_numpy(x), train=True)
+    assert out.requires_grad
+    ref, mutated = jax.jit(
+        lambda v, a: jax_model.apply(v, a, train=True,
+                                     mutable=["batch_stats"]))(
+        variables, jnp.asarray(x))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=5e-4, rtol=5e-4)
+    want = unet_from_flax({"params": variables["params"],
+                           "batch_stats": mutated["batch_stats"]}, twin)
+    moved = 0
+    for k, v in twin.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=1e-5,
+                                   rtol=1e-4, err_msg=k)
+        moved += not torch.equal(v, model.state_dict()[k])
+    assert moved == 2 * 17              # every BatchNorm's mean and variance
     other = UNetLight(in_channel=1, n_classes=NC + 1, bias=True, BN=True)
     with pytest.raises(ValueError, match="shape"):
         unet_from_flax(variables, other)

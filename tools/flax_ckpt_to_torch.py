@@ -6,7 +6,10 @@ Restores an orbax checkpoint directory written by
 maps its variables onto the PyTorch port's ``UNetTemplate`` with
 ``deepatlas_torch.models.unet_from_flax``, and writes the port's checkpoint
 (``<out>/checkpoint`` and ``<out>/model_best``) for ``infer_seg_torch.py``.
-This is the one bridge that imports both packages.
+Optimizer state (Adam moments, step count, learning rate), epoch, best score
+and scheduler state are carried along when the JAX checkpoint has them, so
+a JAX training run resumes in ``train_seg_torch.py`` (``resume_dir``).  This
+is the one bridge that imports both packages.
 
 Example:
   python tools/flax_ckpt_to_torch.py --ckpt runs/seg/model_best \\
@@ -38,7 +41,8 @@ def main(argv=None):
     honor_platform_env()
     from deepatlas_tpu.train import load_checkpoint as load_flax
 
-    from deepatlas_torch.models import get_network, unet_from_flax
+    from deepatlas_torch.models import (adam_from_optax, get_network,
+                                        unet_from_flax)
     from deepatlas_torch.train import save_checkpoint
 
     restored = load_flax(args.ckpt)
@@ -49,6 +53,11 @@ def main(argv=None):
     state = {"epoch": int(restored.get("epoch", 0)),
              "best_score": float(restored.get("best_score", 0.0)),
              "model": unet_from_flax(variables, model)}
+    if restored.get("opt_state") is not None:
+        state["optimizer"] = adam_from_optax(restored["opt_state"], model)
+    if restored.get("scheduler"):
+        state["scheduler"] = {k: float(v)
+                              for k, v in restored["scheduler"].items()}
     path = save_checkpoint(state, True, args.out)
     print(f"wrote {path} and {os.path.join(args.out, 'model_best')}")
 
