@@ -1,4 +1,4 @@
-"""NIfTI segmentation datasets.
+"""NIfTI segmentation and pairwise registration datasets.
 
 List-file driven datasets per corpus (OAI-ZIB, OASIS, the four brain atlases,
 MindBoggle101) with the original reference's ``n_samples`` int-prefix /
@@ -12,12 +12,15 @@ Filename conventions per corpus:
   * MindBoggle: image_in_MNI152_normalized/<name>.nii.gz /
                 label_31_reID_merged/<name>.nii.gz
 
+The registration datasets index the ordered pairs of a corpus and yield
+``(moving, fixed)`` sample tuples.
+
 Pure Python + numpy; batching and prefetch live in data/loader.py.
 """
 from __future__ import annotations
 
 import os
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -80,7 +83,7 @@ class SegDataset:
         self.shuffle = shuffle
         if shuffle:
             self.shuffle_id = np.random.RandomState(seed).permutation(
-                self.length)
+                self._index_space())
         if preload:
             self.sample_list = [self._load(i) for i in range(self.length)]
 
@@ -92,8 +95,13 @@ class SegDataset:
     def seg_path(data_dir: str, name: str) -> str:
         return os.path.join(data_dir, name + "_masks.nii.gz")
 
-    def __len__(self) -> int:
+    def _index_space(self) -> int:
+        """How many indices ``__getitem__`` takes: the volumes here, the
+        ordered pairs in the registration datasets."""
         return self.length
+
+    def __len__(self) -> int:
+        return self._index_space()
 
     def _load(self, idx: int) -> Sample:
         image_file = self.image_list[idx]
@@ -159,13 +167,63 @@ class SegDataSetMindBoggle(SegDataset):
         return os.path.join(data_dir, "label_31_reID_merged", name + ".nii.gz")
 
 
+class _RegPairMixin:
+    """Ordered-pair indexing over a seg dataset: ``N * (N - 1)`` pairs,
+    id -> (moving, fixed) with the self-pair skipped."""
+
+    def _index_space(self) -> int:
+        return self.length * (self.length - 1)
+
+    @staticmethod
+    def pair_indices(pair_id: int, length: int) -> Tuple[int, int]:
+        fixed = pair_id // (length - 1)
+        moving = pair_id % (length - 1)
+        if moving >= fixed:
+            moving += 1
+        return moving, fixed
+
+    def __getitem__(self, idx: int):
+        if self.shuffle:
+            idx = int(self.shuffle_id[idx])
+        moving_ind, fixed_ind = self.pair_indices(idx, self.length)
+        return self.get_sample(moving_ind), self.get_sample(fixed_ind)
+
+
+class RegDataSetOAIZIB(_RegPairMixin, SegDataSetOAIZIB):
+    pass
+
+
+class RegDataSetOASIS(_RegPairMixin, SegDataSetOASIS):
+    pass
+
+
+class RegDataSetBrains(_RegPairMixin, SegDataSetBrains):
+    pass
+
+
+class RegDataSetMindBoggle(_RegPairMixin, SegDataSetMindBoggle):
+    pass
+
+
 _SEG = {"OAI": SegDataSetOAIZIB, "OASIS": SegDataSetOASIS,
         "LPBA40": SegDataSetBrains, "CUMC12": SegDataSetBrains,
         "IBSR18": SegDataSetBrains, "MGH10": SegDataSetBrains,
         "MindBoggle": SegDataSetMindBoggle}
 
 
+_REG = {"OAI": RegDataSetOAIZIB, "OASIS": RegDataSetOASIS,
+        "LPBA40": RegDataSetBrains, "CUMC12": RegDataSetBrains,
+        "IBSR18": RegDataSetBrains, "MGH10": RegDataSetBrains,
+        "MindBoggle": RegDataSetMindBoggle}
+
+
 def get_seg_dataset(data: str):
     if data not in _SEG:
         raise ValueError("Wrong dataset given!")
     return _SEG[data]
+
+
+def get_reg_dataset(data: str):
+    if data not in _REG:
+        raise ValueError("Wrong dataset given!")
+    return _REG[data]

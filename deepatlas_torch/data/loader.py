@@ -51,17 +51,22 @@ class _BufferRing:
         return bufs[i]
 
 
-def _stack_samples(samples: Sequence[dict],
-                   ring: Optional[_BufferRing] = None) -> dict:
+def _stack_samples(samples: Sequence, ring: Optional[_BufferRing] = None,
+                   prefix: str = ""):
     """Stack sample dicts into a batch dict of arrays; non-array values
-    (names) become lists.  With a ``ring`` the arrays are written into
-    recycled buffers instead of fresh allocations."""
+    (names) become lists.  Tuple samples (the (moving, fixed) pairs of the
+    registration datasets) become a tuple of such batches.  With a ``ring``
+    the arrays are written into recycled buffers instead of fresh
+    allocations (``prefix`` keeps a tuple's members in separate slots)."""
+    if isinstance(samples[0], tuple):
+        return tuple(_stack_samples([s[i] for s in samples], ring, f"{i}/")
+                     for i in range(len(samples[0])))
     out: dict = {}
     for key in samples[0]:
         vals = [s[key] for s in samples]
         if isinstance(vals[0], np.ndarray):
             if ring is not None:
-                buf = ring.get(key, (len(vals),) + vals[0].shape,
+                buf = ring.get(prefix + key, (len(vals),) + vals[0].shape,
                                vals[0].dtype)
                 for i, v in enumerate(vals):
                     buf[i] = v

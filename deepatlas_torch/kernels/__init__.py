@@ -10,15 +10,22 @@ from typing import Dict
 
 from .conv3d import (conv3d_k3, conv3d_k3_plain, conv3d_k3_wgrad,
                      conv3d_k3_wgrad_plain, conv3d_point, conv3d_point_plain)
-from .deconv3d import deconv2x, deconv2x_plain
+from .deconv3d import deconv2x, deconv2x_plain, nearest_up2x
+from .warp import (grid_sample, splat_trilinear, splat_trilinear_plain,
+                   warp_grid_grad, warp_grid_grad_plain, warp_trilinear,
+                   warp_trilinear_plain)
+from .warp_lncc import warp_lncc_loss
 
 # wrapper -> its plain version, in the order a training step of the U-Net
-# first launches them
+# and then one of VoxelMorph first launch them
 KERNELS = {
     "conv3d_k3": (conv3d_k3, conv3d_k3_plain),
     "deconv2x": (deconv2x, deconv2x_plain),
     "conv3d_point": (conv3d_point, conv3d_point_plain),
     "conv3d_k3_wgrad": (conv3d_k3_wgrad, conv3d_k3_wgrad_plain),
+    "warp_trilinear": (warp_trilinear, warp_trilinear_plain),
+    "warp_grid_grad": (warp_grid_grad, warp_grid_grad_plain),
+    "splat_trilinear": (splat_trilinear, splat_trilinear_plain),
 }
 
 
@@ -34,5 +41,7 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNELS", "conv3d_k3", "conv3d_k3_plain", "conv3d_k3_wgrad",
            "conv3d_k3_wgrad_plain", "conv3d_point", "conv3d_point_plain",
-           "deconv2x", "deconv2x_plain", "launch_counts",
-           "reset_launch_counts"]
+           "deconv2x", "deconv2x_plain", "grid_sample", "launch_counts",
+           "nearest_up2x", "reset_launch_counts", "splat_trilinear", "splat_trilinear_plain",
+           "warp_grid_grad", "warp_grid_grad_plain", "warp_lncc_loss",
+           "warp_trilinear", "warp_trilinear_plain"]

@@ -30,6 +30,14 @@ product (as in the JAX package, which leaves it to XLA).  The backward runs
 through the same device dispatch, so on the CPU it reaches the plain
 versions.
 
+Stride: ``conv3d_k3`` and ``conv3d_k3_wgrad`` take ``stride`` 1 or 2.
+Conv3d(k3 s2 p1) is the stride-1 conv subsampled at the even indices (output
+``o`` reads inputs ``2o-1..2o+1``; ``ceil(n / 2)`` outputs per axis); the
+kernels compute only those outputs, the plain versions compute them all and
+subsample (forward) or put the upstream gradient at the even positions of a
+zero tensor (weight gradient).  The strided conv's ``dx`` is the stride-1
+kernel on that zero-stuffed gradient.
+
 Types: x float32 or bfloat16; weights are rounded to x's type (as the JAX
 modules cast their float32 parameters to the compute type), products
 accumulate in float32, and the output is rounded to x's type once.  The
@@ -50,12 +58,12 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "conv3d_k3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "conv3d_k3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "conv3d_point": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 _WGRAD_SIGNATURES = {
-    "conv3d_k3_wgrad_chunks": [_I, _I, _I, _I, _I, _I],
-    "conv3d_k3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "conv3d_k3_wgrad_chunks": [_I, _I, _I, _I, _I, _I, _I],
+    "conv3d_k3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -106,6 +114,26 @@ def upstream(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return g.to(x.dtype).contiguous()
 
 
+def strided_shape(dhw, stride: int) -> tuple:
+    """Output sizes of a k3 p1 conv of ``stride``: ``ceil(n / stride)``."""
+    return tuple(-(-int(n) // stride) for n in dhw)
+
+
+def _check_stride(stride: int, what: str) -> None:
+    if stride not in (1, 2):
+        raise ValueError(f"{what}: stride must be 1 or 2, got {stride}")
+
+
+def zero_stuffed(g: torch.Tensor, dhw, stride: int) -> torch.Tensor:
+    """``g`` at every ``stride``-th voxel of a zero ``(B, *dhw, C)`` tensor:
+    the upstream gradient of a strided conv as its stride-1 twin sees it."""
+    if stride == 1:
+        return g
+    full = g.new_zeros((g.shape[0], *dhw, g.shape[-1]))
+    full[:, ::stride, ::stride, ::stride] = g
+    return full
+
+
 def bias_grad(g: torch.Tensor) -> torch.Tensor:
     """Gradient of a fused bias: g summed over the voxels, in float32."""
     return g.sum(dim=(0, 1, 2, 3), dtype=torch.float32)
@@ -113,9 +141,10 @@ def bias_grad(g: torch.Tensor) -> torch.Tensor:
 
 # -------------------------------------------------------------- k3 conv
 
-def _k3_math(x, wk, bk):
-    """Conv3d k3 s1 p1 as 27 shifted channel contractions (no cuDNN), on
-    weights already rounded by ``kernel_operands``."""
+def _k3_math(x, wk, bk, stride=1):
+    """Conv3d k3 p1 as 27 shifted channel contractions (no cuDNN), on
+    weights already rounded by ``kernel_operands``; a strided conv is the
+    stride-1 result at the even voxels."""
     b, d, h, wd, _ = x.shape
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
     out = torch.zeros(b, d, h, wd, wk.shape[-1], dtype=torch.float32,
@@ -128,33 +157,38 @@ def _k3_math(x, wk, bk):
                     xp[:, kz:kz + d, ky:ky + h, kx:kx + wd], wk[kz, ky, kx])
     if bk is not None:
         out += bk
+    if stride != 1:
+        out = out[:, ::stride, ::stride, ::stride].contiguous()
     return out.to(x.dtype)
 
 
-def _k3_cuda(x, wk, bk):
+def _k3_cuda(x, wk, bk, stride=1):
     b, d, h, wd, cin = x.shape
     cout = wk.shape[-1]
-    y = torch.empty(b, d, h, wd, cout, dtype=x.dtype, device=x.device)
+    y = torch.empty(b, *strided_shape((d, h, wd), stride), cout,
+                    dtype=x.dtype, device=x.device)
     lib = build.load("conv3d", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.conv3d_k3(_DTYPES[x.dtype], x.data_ptr(), wk.data_ptr(),
                            _ptr(bk), y.data_ptr(), b, d, h, wd, cin, cout,
-                           stream)
+                           stride, stream)
     build.check(rc, "conv3d_k3")
     conv3d_k3.launches += 1
     return y
 
 
-def _k3_op(x, wk, bk):
-    return _k3_math(x, wk, bk) if x.device.type == "cpu" \
-        else _k3_cuda(x, wk, bk)
+def _k3_op(x, wk, bk, stride=1):
+    return _k3_math(x, wk, bk, stride) if x.device.type == "cpu" \
+        else _k3_cuda(x, wk, bk, stride)
 
 
 def conv3d_k3_plain(x: torch.Tensor, w: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None,
+                    stride: int = 1) -> torch.Tensor:
     """The plain PyTorch version of ``conv3d_k3`` (forward only)."""
-    return _k3_math(x, *kernel_operands(x, w, bias))
+    _check_stride(stride, "conv3d_k3")
+    return _k3_math(x, *kernel_operands(x, w, bias), stride)
 
 
 def adjoint_k3_weights(wk: torch.Tensor) -> torch.Tensor:
@@ -165,11 +199,12 @@ def adjoint_k3_weights(wk: torch.Tensor) -> torch.Tensor:
 
 class _ConvK3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bias):
+    def forward(ctx, x, w, bias, stride):
         wk, bk = kernel_operands(x, w, bias)
         ctx.save_for_backward(x, wk)
         ctx.has_bias = bias is not None
-        return _k3_op(x, wk, bk)
+        ctx.stride = stride
+        return _k3_op(x, wk, bk, stride)
 
     @staticmethod
     def backward(ctx, g):
@@ -177,29 +212,33 @@ class _ConvK3(torch.autograd.Function):
         g = upstream(g, x)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _k3_op(g, adjoint_k3_weights(wk), None)
+            dx = _k3_op(zero_stuffed(g, x.shape[1:4], ctx.stride),
+                        adjoint_k3_weights(wk), None)
         if ctx.needs_input_grad[1]:
-            dw = conv3d_k3_wgrad(x, g)
+            dw = conv3d_k3_wgrad(x, g, ctx.stride)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = bias_grad(g)
-        return dx, dw, db
+        return dx, dw, db, None
 
 
 def conv3d_k3(x: torch.Tensor, w: torch.Tensor,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Conv3d kernel 3, stride 1, zero padding 1; differentiable in x, w
-    and bias.
+              bias: Optional[torch.Tensor] = None,
+              stride: int = 1) -> torch.Tensor:
+    """Conv3d kernel 3, stride 1 or 2, zero padding 1; differentiable in x,
+    w and bias.
 
     Args:
       x: ``(B, D, H, W, Cin)`` float32 or bfloat16, contiguous.
       w: ``(3, 3, 3, Cin, Cout)`` (flax's DHWIO layout).
       bias: optional ``(Cout,)``, added in float32 before the output is
         rounded.
+      stride: 1, or 2 for ``ceil(n / 2)`` outputs per axis.
 
-    Returns ``(B, D, H, W, Cout)`` in x's type.
+    Returns ``(B, D', H', W', Cout)`` in x's type.
     """
     check_operands(x, w, bias, (3, 3, 3), "conv3d_k3")
-    return _ConvK3.apply(x, w, bias)
+    _check_stride(stride, "conv3d_k3")
+    return _ConvK3.apply(x, w, bias, stride)
 
 
 conv3d_k3.launches = 0
@@ -207,10 +246,10 @@ conv3d_k3.launches = 0
 
 # ------------------------------------------------- k3 weight gradient
 
-def _wgrad_math(x, g):
+def _wgrad_math(x, g, stride=1):
     b, d, h, wd, cin = x.shape
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
-    gf = g.float()
+    gf = zero_stuffed(g, (d, h, wd), stride).float()
     dw = torch.empty(3, 3, 3, cin, g.shape[-1], dtype=torch.float32,
                      device=x.device)
     for kz in range(3):
@@ -222,11 +261,11 @@ def _wgrad_math(x, g):
     return dw
 
 
-def _wgrad_cuda(x, g):
+def _wgrad_cuda(x, g, stride=1):
     b, d, h, wd, cin = x.shape
     cout = g.shape[-1]
     lib = build.load("conv3d_wgrad", _WGRAD_SIGNATURES)
-    chunks = lib.conv3d_k3_wgrad_chunks(b, d, h, wd, cin, cout)
+    chunks = lib.conv3d_k3_wgrad_chunks(b, d, h, wd, cin, cout, stride)
     partial = torch.empty(chunks, 27, cin, cout, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty(3, 3, 3, cin, cout, dtype=torch.float32,
@@ -236,17 +275,21 @@ def _wgrad_cuda(x, g):
         rc = lib.conv3d_k3_wgrad(_DTYPES[x.dtype], x.data_ptr(),
                                  g.data_ptr(), partial.data_ptr(),
                                  dw.data_ptr(), b, d, h, wd, cin, cout,
-                                 stream)
+                                 stride, stream)
     build.check(rc, "conv3d_k3_wgrad")
     conv3d_k3_wgrad.launches += 1
     return dw
 
 
-def _check_wgrad_operands(x: torch.Tensor, g: torch.Tensor) -> None:
+def _check_wgrad_operands(x: torch.Tensor, g: torch.Tensor,
+                          stride: int = 1) -> None:
     what = "conv3d_k3_wgrad"
-    if x.dim() != 5 or g.dim() != 5 or x.shape[:4] != g.shape[:4]:
+    _check_stride(stride, what)
+    if x.dim() != 5 or g.dim() != 5 or g.shape[0] != x.shape[0] \
+            or tuple(g.shape[1:4]) != strided_shape(x.shape[1:4], stride):
         raise ValueError(f"{what}: x (B, D, H, W, Cin) and g (B, D, H, W, "
-                         f"Cout) must share their voxels, got "
+                         f"Cout) must share their voxels (ceil(n / stride) "
+                         f"of them at stride {stride}), got "
                          f"{tuple(x.shape)} and {tuple(g.shape)}")
     if x.dtype not in _DTYPES or g.dtype != x.dtype:
         raise TypeError(f"{what}: x and g must share float32 or bfloat16, "
@@ -259,35 +302,39 @@ def _check_wgrad_operands(x: torch.Tensor, g: torch.Tensor) -> None:
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def conv3d_k3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def conv3d_k3_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
+                          stride: int = 1) -> torch.Tensor:
     """The plain PyTorch version of ``conv3d_k3_wgrad``: 27 shifted
-    contractions over the voxels of the zero-padded x, in float32."""
-    _check_wgrad_operands(x, g)
-    return _wgrad_math(x, g)
+    contractions over the voxels of the zero-padded x, in float32 (a
+    strided g is first put at the even voxels of a zero tensor)."""
+    _check_wgrad_operands(x, g, stride)
+    return _wgrad_math(x, g, stride)
 
 
-def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor,
+                    stride: int = 1) -> torch.Tensor:
     """Weight gradient of ``conv3d_k3``::
 
-        dW[kz, ky, kx, ci, co] = sum_{b,d,h,w} x[b, d+kz-1, h+ky-1, w+kx-1, ci]
-                                               * g[b, d, h, w, co]
+        dW[kz, ky, kx, ci, co] = sum_{b,d,h,w} x[b, s d+kz-1, s h+ky-1,
+                                                 s w+kx-1, ci] * g[b, d, h, w, co]
 
-    with out-of-volume x read as zero.
+    with ``s`` the stride and out-of-volume x read as zero.
 
     Args:
       x: the conv's input ``(B, D, H, W, Cin)``, float32 or bfloat16,
         contiguous.
-      g: the gradient of the conv's output ``(B, D, H, W, Cout)`` in x's
-        type, contiguous.
+      g: the gradient of the conv's output ``(B, D', H', W', Cout)`` in
+        x's type, contiguous (``ceil(n / stride)`` voxels per axis).
+      stride: the conv's stride, 1 or 2.
 
     Returns ``(3, 3, 3, Cin, Cout)`` float32 (products accumulated in
     float32).  The CUDA kernel sums in a fixed order, so the result is the
     same from run to run.
     """
-    _check_wgrad_operands(x, g)
+    _check_wgrad_operands(x, g, stride)
     if x.device.type == "cpu":
-        return _wgrad_math(x, g)
-    return _wgrad_cuda(x, g)
+        return _wgrad_math(x, g, stride)
+    return _wgrad_cuda(x, g, stride)
 
 
 conv3d_k3_wgrad.launches = 0

@@ -1,5 +1,5 @@
-// Weight gradient of the k3 s1 p1 conv on channel-last (B, D, H, W, C)
-// tensors, for sm_90a.
+// Weight gradient of the k3 p1 conv (stride 1 or 2) on channel-last
+// (B, D, H, W, C) tensors, for sm_90a.
 //
 // conv3d_k3_wgrad: replaces the TPU kernel
 //   deepatlas_tpu/pallas/conv3d.py::_conv_wgrad_kernel.  That kernel
@@ -30,6 +30,13 @@
 //     (chunks, 27, Cin, Cout) and a second small kernel adds the chunks in
 //     a fixed order.  No atomics: the result is the same from run to run.
 //
+//   With stride 2 (the VoxelMorph encoder: g has ceil(n/2) voxels per axis
+//   and output o meets inputs 2o-1..2o+1) the tiles cover g, the x halo of a
+//   tile is 65x5x5 voxels, and the lane slides along x two inputs per
+//   output; nothing is spent on the odd outputs that a zero-stuffed g at
+//   x's resolution would multiply by zero.  The halo no longer fits static
+//   shared memory, so both strides take theirs dynamically.
+//
 //   This first version runs on the CUDA cores in float32 (bf16 products are
 //   exact in float32); a tensor-core version is the next step.
 //
@@ -41,10 +48,15 @@ namespace {
 
 using da::to_float;
 
-constexpr int TX = 32, TY = 2, TZ = 2;  // output voxels of a tile
-constexpr int HX = TX + 2, HY = TY + 2, HZ = TZ + 2;
+constexpr int TX = 32, TY = 2, TZ = 2;  // voxels of g in a tile
 constexpr int TILE_VOX = TX * TY * TZ;
-constexpr int HALO = HX * HY * HZ;
+// x voxels a tile's taps touch, per axis and in all, at stride s
+__host__ __device__ constexpr int halo_side(int n, int s) {
+  return s * (n - 1) + 3;
+}
+__host__ __device__ constexpr int halo_voxels(int s) {
+  return halo_side(TX, s) * halo_side(TY, s) * halo_side(TZ, s);
+}
 constexpr int WG_THREADS = 9 * 32;  // one warp per (kz, ky)
 // blocks to aim for over the whole grid: several waves of the 132 SMs, so
 // that the last, partly filled wave costs little
@@ -74,8 +86,8 @@ struct Tiling {
   int tiles_per_chunk, chunks;
 };
 
-// How the voxels of one call are cut into tiles and the tiles into chunks,
-// for a grid of `channel_blocks` (ci, co) blocks per chunk.
+// How the voxels of g (B, D, H, W of them) are cut into tiles and the tiles
+// into chunks, for a grid of `channel_blocks` (ci, co) blocks per chunk.
 Tiling make_tiling(int B, int D, int H, int W, int channel_blocks) {
   Tiling t;
   t.tiles_x = (W + TX - 1) / TX;
@@ -92,16 +104,29 @@ Tiling make_tiling(int B, int D, int H, int W, int channel_blocks) {
   return t;
 }
 
-template <typename T, int CI, int CO_T>
+// Bytes of dynamic shared memory of one block: the x halo, then the g tile.
+template <int CI, int CO_T, int S>
+constexpr int wgrad_smem_bytes() {
+  return (halo_voxels(S) * CI + TILE_VOX * (32 / CI) * CO_T) * 4;
+}
+
+// x is (B, D, H, W, Cin); g is (B, Do, Ho, Wo, Cout) with ceil(n / S) voxels
+// per axis; the tiles cover g.
+template <typename T, int CI, int CO_T, int S>
 __global__ void __launch_bounds__(WG_THREADS)
 conv3d_k3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                        float* __restrict__ partial, int D, int H, int W,
-                       int Cin, int Cout, int tiles_x, int tiles_y,
-                       int tiles_z, long long n_tiles, int tiles_per_chunk) {
+                       int Do, int Ho, int Wo, int Cin, int Cout, int tiles_x,
+                       int tiles_y, int tiles_z, long long n_tiles,
+                       int tiles_per_chunk) {
   constexpr int NCOG = 32 / CI;     // groups of output channels per warp
   constexpr int CO = NCOG * CO_T;   // output channels of a block
-  __shared__ float xs[HALO * CI];                     // [halo voxel][ci]
-  __shared__ __align__(16) float gs[TILE_VOX * CO];   // [voxel][co]
+  constexpr int HX = halo_side(TX, S), HY = halo_side(TY, S);
+  constexpr int HALO = halo_voxels(S);
+  static_assert((HALO * CI) % 4 == 0, "the g tile must stay 16-byte aligned");
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;               // [halo voxel][ci]
+  float* gs = smem + HALO * CI;   // [voxel][co]
 
   const int tid = threadIdx.x;
   const int k = tid / 32;  // kz * 3 + ky
@@ -116,7 +141,7 @@ conv3d_k3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
     for (int c = 0; c < CO_T; ++c) acc[kx][c] = 0.f;
 
-  const int64_t plane = (int64_t)H * W;
+  const int64_t plane = (int64_t)H * W, gplane = (int64_t)Ho * Wo;
   const int64_t t_begin = (int64_t)blockIdx.x * tiles_per_chunk;
   const int64_t t_end = min((long long)(t_begin + tiles_per_chunk), n_tiles);
 
@@ -129,13 +154,14 @@ conv3d_k3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const int z0 = (int)(r % tiles_z) * TZ;
     const int64_t b = r / tiles_z;
     const T* xb = x + b * D * plane * Cin;
-    const T* gb = g + b * D * plane * Cout;
+    const T* gb = g + b * Do * gplane * Cout;
 
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < HALO * CI; i += WG_THREADS) {
       const int c = i % CI, hv = i / CI;
       const int hx = hv % HX, hy = (hv / HX) % HY, hz = hv / (HX * HY);
-      const int gx = x0 + hx - 1, gy = y0 + hy - 1, gz = z0 + hz - 1;
+      const int gx = S * x0 + hx - 1, gy = S * y0 + hy - 1,
+                gz = S * z0 + hz - 1;
       float v = 0.f;
       if (ci0 + c < Cin && gx >= 0 && gx < W && gy >= 0 && gy < H &&
           gz >= 0 && gz < D)
@@ -147,9 +173,9 @@ conv3d_k3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
       const int gx = x0 + v % TX, gy = y0 + (v / TX) % TY,
                 gz = z0 + v / (TX * TY);
       float val = 0.f;
-      if (co0 + c < Cout && gx < W && gy < H && gz < D)
+      if (co0 + c < Cout && gx < Wo && gy < Ho && gz < Do)
         val = to_float(
-            gb[(gz * plane + (int64_t)gy * W + gx) * Cout + co0 + c]);
+            gb[(gz * gplane + (int64_t)gy * Wo + gx) * Cout + co0 + c]);
       gs[i] = val;
     }
     __syncthreads();
@@ -158,12 +184,15 @@ conv3d_k3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
     for (int zz = 0; zz < TZ; ++zz) {
 #pragma unroll
       for (int yy = 0; yy < TY; ++yy) {
-        const float* xr = xs + ((zz + kz) * HY + yy + ky) * HX * CI + ci;
+        const float* xr =
+            xs + ((S * zz + kz) * HY + S * yy + ky) * HX * CI + ci;
         const float* gr = gs + (zz * TY + yy) * TX * CO + cog * CO_T;
         float xa = xr[0], xb1 = xr[CI];
 #pragma unroll 4
         for (int xx = 0; xx < TX; ++xx) {
-          const float xc = xr[(xx + 2) * CI];
+          // the three taps of output xx are halo columns S*xx .. S*xx + 2
+          if constexpr (S == 2) xb1 = xr[(2 * xx + 1) * CI];
+          const float xc = xr[(S * xx + 2) * CI];
           float gv[CO_T];
           load_vec<CO_T>(gv, gr + xx * CO);
 #pragma unroll
@@ -172,8 +201,12 @@ conv3d_k3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
             acc[1][c] = fmaf(xb1, gv[c], acc[1][c]);
             acc[2][c] = fmaf(xc, gv[c], acc[2][c]);
           }
-          xa = xb1;
-          xb1 = xc;
+          if constexpr (S == 1) {
+            xa = xb1;
+            xb1 = xc;
+          } else {
+            xa = xc;
+          }
         }
       }
     }
@@ -225,35 +258,52 @@ int channel_blocks(int Cin, int Cout) {
   return ((Cin + ci - 1) / ci) * ((Cout + co - 1) / co);
 }
 
-template <typename T, int CI, int CO_T>
-void launch_wgrad(const void* x, const void* g, void* partial, int B, int D,
-                  int H, int W, int Cin, int Cout, cudaStream_t s) {
+int out_size(int n, int stride) { return (n + stride - 1) / stride; }
+
+template <typename T, int CI, int CO_T, int S>
+int launch_wgrad(const void* x, const void* g, void* partial, int B, int D,
+                 int H, int W, int Cin, int Cout, cudaStream_t s) {
   constexpr int CO = (32 / CI) * CO_T;
-  const Tiling t = make_tiling(B, D, H, W, channel_blocks(Cin, Cout));
+  constexpr int smem = wgrad_smem_bytes<CI, CO_T, S>();
+  const int Do = out_size(D, S), Ho = out_size(H, S), Wo = out_size(W, S);
+  const Tiling t = make_tiling(B, Do, Ho, Wo, channel_blocks(Cin, Cout));
+  auto kernel = conv3d_k3_wgrad_kernel<T, CI, CO_T, S>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
   dim3 grid(t.chunks, (Cin + CI - 1) / CI, (Cout + CO - 1) / CO);
-  conv3d_k3_wgrad_kernel<T, CI, CO_T><<<grid, WG_THREADS, 0, s>>>(
+  kernel<<<grid, WG_THREADS, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<float*>(partial), D, H, W, Cin, Cout, t.tiles_x, t.tiles_y,
-      t.tiles_z, t.n_tiles, t.tiles_per_chunk);
+      static_cast<float*>(partial), D, H, W, Do, Ho, Wo, Cin, Cout,
+      t.tiles_x, t.tiles_y, t.tiles_z, t.n_tiles, t.tiles_per_chunk);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int S>
+int dispatch_wgrad(const void* x, const void* g, void* partial, int B, int D,
+                   int H, int W, int Cin, int Cout, cudaStream_t s) {
+  switch (pick_variant(Cin, Cout)) {
+    case kCi8Co8:
+      return launch_wgrad<T, 8, 2, S>(x, g, partial, B, D, H, W, Cin, Cout, s);
+    case kCi8Co16:
+      return launch_wgrad<T, 8, 4, S>(x, g, partial, B, D, H, W, Cin, Cout, s);
+    case kCi16Co16:
+      return launch_wgrad<T, 16, 8, S>(x, g, partial, B, D, H, W, Cin, Cout,
+                                       s);
+    default:
+      return launch_wgrad<T, 8, 8, S>(x, g, partial, B, D, H, W, Cin, Cout, s);
+  }
 }
 
 template <typename T>
-void dispatch_wgrad(const void* x, const void* g, void* partial, int B, int D,
-                    int H, int W, int Cin, int Cout, cudaStream_t s) {
-  switch (pick_variant(Cin, Cout)) {
-    case kCi8Co8:
-      launch_wgrad<T, 8, 2>(x, g, partial, B, D, H, W, Cin, Cout, s);
-      break;
-    case kCi8Co16:
-      launch_wgrad<T, 8, 4>(x, g, partial, B, D, H, W, Cin, Cout, s);
-      break;
-    case kCi16Co16:
-      launch_wgrad<T, 16, 8>(x, g, partial, B, D, H, W, Cin, Cout, s);
-      break;
-    case kCi8Co32:
-      launch_wgrad<T, 8, 8>(x, g, partial, B, D, H, W, Cin, Cout, s);
-      break;
-  }
+int dispatch_wgrad_stride(const void* x, const void* g, void* partial, int B,
+                          int D, int H, int W, int Cin, int Cout, int stride,
+                          cudaStream_t s) {
+  return stride == 2
+             ? dispatch_wgrad<T, 2>(x, g, partial, B, D, H, W, Cin, Cout, s)
+             : dispatch_wgrad<T, 1>(x, g, partial, B, D, H, W, Cin, Cout, s);
 }
 
 }  // namespace
@@ -261,23 +311,29 @@ void dispatch_wgrad(const void* x, const void* g, void* partial, int B, int D,
 extern "C" {
 
 // Chunks of partial sums the launch below writes: the caller allocates a
-// float32 workspace of (chunks, 27, Cin, Cout).
-int conv3d_k3_wgrad_chunks(int B, int D, int H, int W, int Cin, int Cout) {
-  return make_tiling(B, D, H, W, channel_blocks(Cin, Cout)).chunks;
+// float32 workspace of (chunks, 27, Cin, Cout).  D, H, W are x's sizes.
+int conv3d_k3_wgrad_chunks(int B, int D, int H, int W, int Cin, int Cout,
+                           int stride) {
+  return make_tiling(B, out_size(D, stride), out_size(H, stride),
+                     out_size(W, stride), channel_blocks(Cin, Cout)).chunks;
 }
 
+// x is (B, D, H, W, Cin); g is (B, ceil(D/stride), ceil(H/stride),
+// ceil(W/stride), Cout); stride is 1 or 2.
 int conv3d_k3_wgrad(int dtype, const void* x, const void* g, void* partial,
                     void* dw, int B, int D, int H, int W, int Cin, int Cout,
-                    void* stream) {
+                    int stride, void* stream) {
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == da::kBFloat16)
-    dispatch_wgrad<__nv_bfloat16>(x, g, partial, B, D, H, W, Cin, Cout, s);
-  else
-    dispatch_wgrad<float>(x, g, partial, B, D, H, W, Cin, Cout, s);
-  int rc = (int)cudaGetLastError();
+  const int rc =
+      dtype == da::kBFloat16
+          ? dispatch_wgrad_stride<__nv_bfloat16>(x, g, partial, B, D, H, W,
+                                                 Cin, Cout, stride, s)
+          : dispatch_wgrad_stride<float>(x, g, partial, B, D, H, W, Cin, Cout,
+                                         stride, s);
   if (rc != 0) return rc;
   const int n = 27 * Cin * Cout;
-  const int chunks = conv3d_k3_wgrad_chunks(B, D, H, W, Cin, Cout);
+  const int chunks = conv3d_k3_wgrad_chunks(B, D, H, W, Cin, Cout, stride);
   wgrad_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(dw), n, chunks);
   return (int)cudaGetLastError();

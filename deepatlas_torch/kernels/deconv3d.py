@@ -123,3 +123,15 @@ def deconv2x(x: torch.Tensor, w: torch.Tensor,
 
 
 deconv2x.launches = 0
+
+
+def nearest_up2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of ``(B, D, H, W, C)`` as ``deconv2x``
+    with the constant identity bank: every tap copies its input voxel, so
+    the result equals ``ops.nearest_resize`` to twice the size bit for bit.
+    Counterpart of the JAX package's ``packed_nearest_up2``, which runs the
+    VoxelMorph decoder's full-resolution upsample on the same TPU kernel;
+    the bank is a constant, so the backward takes ``dx`` only."""
+    c = x.shape[-1]
+    bank = torch.eye(c, device=x.device).expand(2, 2, 2, c, c)
+    return deconv2x(x, bank)

@@ -3,8 +3,8 @@
 Same keys as ``deepatlas_tpu.models``: ``get_network(name)`` returns a module
 factory called with the reference's model settings, e.g.
 ``get_network("UNet_light")(in_channel=1, n_classes=5, bias=True, BN=True,
-dtype=torch.bfloat16)``.  Networks whose port has not landed yet raise
-``NotImplementedError``.
+dtype=torch.bfloat16)`` or ``get_network("voxel_morph_cvpr")(max_disp=8)``.
+Networks whose port has not landed yet raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -12,14 +12,16 @@ from functools import partial
 
 import torch
 
-from .convert import adam_from_optax, unet_from_flax
+from .convert import adam_from_optax, unet_from_flax, voxelmorph_from_flax
 from .layers import BatchNorm, ConvBlock, DeconvBlock, max_pool_3d
 from .unet import UNetTemplate
+from .voxelmorph import VoxelMorphCVPR2018
 
-__all__ = ["adam_from_optax", "BatchNorm", "ConvBlock", "DeconvBlock", "UNetLight",
-           "UNetTemplate", "get_available_networks", "get_network",
-           "max_pool_3d", "network_dic", "resolve_model_settings",
-           "unet_from_flax"]
+__all__ = ["adam_from_optax", "BatchNorm", "ConvBlock", "DeconvBlock",
+           "UNetLight", "UNetTemplate", "VoxelMorphCVPR2018",
+           "get_available_networks", "get_network", "max_pool_3d",
+           "network_dic", "resolve_model_settings", "unet_from_flax",
+           "voxelmorph_from_flax"]
 
 # the UNet_light channel plan
 UNET_LIGHT_ENCODERS = ((8, 16), (16, 16, 32), (32, 32, 64), (64, 64, 64))
@@ -32,10 +34,11 @@ UNetLight = partial(UNetTemplate,
 
 network_dic = {
     "UNet_light": UNetLight,
+    "voxel_morph_cvpr": VoxelMorphCVPR2018,
 }
 
 # keys of the JAX registry whose port comes with a later slice
-_NOT_PORTED = ("UNet", "voxel_morph_cvpr")
+_NOT_PORTED = ("UNet",)
 
 
 def get_network(network_name: str):

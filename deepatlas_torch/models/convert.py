@@ -1,5 +1,5 @@
-"""Convert the JAX package's U-Net variables and optimizer state into this
-package's state_dicts.
+"""Convert the JAX package's U-Net and VoxelMorph variables and optimizer
+state into this package's state_dicts.
 
 The JAX ``UNetTemplate`` stores one of two parameter trees:
 
@@ -17,12 +17,20 @@ then per decoder level its upsampler and its conv chain, then the head
 (``deepatlas_tpu/models/packed.py::transfer_unet_params`` walks the same
 order).  Variables arrive as nested dicts of arrays; only numpy is used.
 
+The JAX ``VoxelMorphCVPR2018`` likewise stores ``ConvBlock_0..9`` plus the
+flow head ``Conv_0`` (standard), or ``PackedConvBlock_0..4`` for the two
+shallow encoder convs, the two shallow decoder convs and the head, mixed
+with ``ConvBlock_0..5`` for the deep levels (packed).  Packed blocks keep
+their kernels at the logical ``(3, 3, 3, Cin, Cout)`` shape (for a split
+skip input, the concatenation's), so nothing is unpacked.
+
 The mapping is a pure relabelling (plus the standard deconv's transpose), so
 it carries any tree shaped like the parameters: gradients, and the ``mu`` /
 ``nu`` moments of the JAX package's Adam (``adam_from_optax``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -143,13 +151,56 @@ def unet_from_flax(variables: dict, model,
     return out
 
 
+# port module -> flax module, for the two JAX VoxelMorph trees
+_VM_PORT = [f"enc.{i}" for i in range(5)] + [f"dec.{i}" for i in range(5)] \
+    + ["head"]
+_VM_STANDARD = [f"ConvBlock_{i}" for i in range(10)] + ["Conv_0"]
+_VM_PACKED = (["PackedConvBlock_0", "PackedConvBlock_1"]
+              + [f"ConvBlock_{i}" for i in range(6)]
+              + ["PackedConvBlock_2", "PackedConvBlock_3",
+                 "PackedConvBlock_4"])
+
+
+def voxelmorph_from_flax(variables: dict, model) -> Dict[str, torch.Tensor]:
+    """State dict of ``model`` (a ``VoxelMorphCVPR2018``) from the JAX
+    VoxelMorph's ``{'params': ...}``, standard or packed tree.  The network
+    has no BatchNorm, so the same call maps a gradient or an optimizer-moment
+    tree.
+
+    Raises ``ValueError`` when the tree does not fit the model.
+    """
+    params = variables["params"]
+    keys = set(params)
+    for names in (_VM_STANDARD, _VM_PACKED):
+        if set(names) == keys:
+            break
+    else:
+        raise ValueError(f"parameter tree {sorted(keys)} is neither the "
+                         f"standard nor the packed VoxelMorph tree")
+    ref = dict(model.named_parameters())
+    out = {}
+    for prefix, name in zip(_VM_PORT, names):
+        for k, v in _block_entry(params, {}, name).items():
+            key = f"{prefix}.{k}"
+            if key not in ref:
+                raise ValueError(f"{name} carries {k!r}, the model has no "
+                                 f"{key}")
+            if tuple(v.shape) != tuple(ref[key].shape):
+                raise ValueError(f"{key}: shape {v.shape} from the tree, "
+                                 f"model has {tuple(ref[key].shape)}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(v))
+    if set(out) != set(ref):
+        raise ValueError(f"the tree lacks {sorted(set(ref) - set(out))}")
+    return out
+
+
 def _field(node, name):
     """``name`` of an optax state node: a namedtuple as optax builds it, or
     the dict a checkpoint restores it as."""
     return node[name] if isinstance(node, dict) else getattr(node, name)
 
 
-def adam_from_optax(opt_state, model) -> dict:
+def adam_from_optax(opt_state, model, convert=None) -> dict:
     """A ``torch.optim.Adam`` state dict for ``model`` from the state of the
     JAX package's optimizer, ``optax.inject_hyperparams(optax.adam)``
     (``deepatlas_tpu/train/steps.py::make_optimizer``): its first moments
@@ -157,14 +208,17 @@ def adam_from_optax(opt_state, model) -> dict:
     ``count`` every parameter's ``step``, and its injected learning rate the
     group's ``lr``.  ``opt_state`` holds numpy arrays, as optax's
     namedtuples or as the nested dicts and lists a checkpoint restores.
+    ``convert(variables, model)`` maps a parameter-shaped tree onto
+    ``model``'s parameter names: ``unet_from_flax`` with ``params_only`` when
+    not given, ``voxelmorph_from_flax`` for a VoxelMorph.
     """
+    if convert is None:
+        convert = functools.partial(unet_from_flax, params_only=True)
     adam = _field(opt_state, "inner_state")[0]
     count = float(np.asarray(_field(adam, "count")))
     lr = float(np.asarray(_field(opt_state, "hyperparams")["learning_rate"]))
-    mu = unet_from_flax({"params": _field(adam, "mu")}, model,
-                        params_only=True)
-    nu = unet_from_flax({"params": _field(adam, "nu")}, model,
-                        params_only=True)
+    mu = convert({"params": _field(adam, "mu")}, model)
+    nu = convert({"params": _field(adam, "nu")}, model)
     sd = torch.optim.Adam(model.parameters(), lr=lr).state_dict()
     sd["state"] = {
         i: {"step": torch.tensor(count), "exp_avg": mu[name],

@@ -113,15 +113,22 @@ class _Block(nn.Module):
 
 
 class ConvBlock(_Block):
-    """Conv3d(k3 s1 p1) + bias + optional BatchNorm + activation."""
+    """Conv3d(k3, stride 1 or 2, p1) + bias + optional BatchNorm +
+    activation.  With stride 2 output ``o`` reads input ``2 o`` and its +-1
+    taps and an axis of ``n`` gives ``ceil(n / 2)`` outputs (torch's
+    Conv3d(k3 s2 p1); the JAX package's packed trunk computes the same as a
+    stride-1 conv and an even-index subsample)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 batchnorm: bool = False, act: str = "ReLU"):
+                 batchnorm: bool = False, act: str = "ReLU", stride: int = 1):
         super().__init__((3, 3, 3, in_features, features), features,
                          use_bias, batchnorm, act)
+        if stride not in (1, 2):
+            raise ValueError(f"ConvBlock stride must be 1 or 2, got {stride}")
+        self.stride = stride
 
     def _op(self, x):
-        return conv3d_k3(x, self.weight)
+        return conv3d_k3(x, self.weight, stride=self.stride)
 
 
 class DeconvBlock(_Block):

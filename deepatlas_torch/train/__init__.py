@@ -3,6 +3,8 @@ from .base import BaseExperiment, ScalarWriter, test_logger
 from .checkpoint import initialize_from, load_checkpoint, save_checkpoint
 from .inference import (evaluate_sliding_window, make_tile_predictor,
                         sliding_window_predict, volume_dice)
+from .reg_steps import make_reg_eval_step, make_reg_train_step
+from .registration import RegistrationExperiment
 from .schedules import (ConstLR, MultiStepLR, ReduceLROnPlateau,
                         make_scheduler, scheduler_from_restored)
 from .segmentation import SegmentationExperiment
@@ -10,9 +12,11 @@ from .steps import (TrainState, make_optimizer, make_seg_eval_step,
                     make_seg_train_step, set_learning_rate)
 
 __all__ = ["BaseExperiment", "ConstLR", "MultiStepLR", "ReduceLROnPlateau",
-           "ScalarWriter", "SegmentationExperiment", "TrainState",
+           "RegistrationExperiment", "ScalarWriter",
+           "SegmentationExperiment", "TrainState",
            "evaluate_sliding_window", "initialize_from", "load_checkpoint",
-           "make_optimizer", "make_scheduler", "make_seg_eval_step",
+           "make_optimizer", "make_reg_eval_step", "make_reg_train_step",
+           "make_scheduler", "make_seg_eval_step",
            "make_seg_train_step", "make_tile_predictor", "save_checkpoint",
            "scheduler_from_restored", "set_learning_rate",
            "sliding_window_predict", "test_logger", "volume_dice"]

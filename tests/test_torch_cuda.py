@@ -8,7 +8,9 @@ package, so it also runs where only PyTorch is installed:
 
 Shapes are chosen to reach every edge of the kernels: a 1-channel input,
 widths that are not multiples of the 32-wide tile, Cout that is not a
-multiple of 8 (scalar stores) and Cout above one 32-channel block.
+multiple of 8 (scalar stores) and Cout above one 32-channel block; for the
+warp kernels, samples past every border, several channels, batch 2 and a
+grid of another shape than the volume.
 Tolerances as in chip_smoke.py: float32 differs only in summation order
 (1e-4 of the output's range); bfloat16 inputs are the same on both sides
 and both accumulate in float32, so the outputs differ by at most one final
@@ -142,3 +144,202 @@ def test_backward_on_card_matches_plain_math(cuda, name, wlead, up, dtype):
         assert a.shape == b.shape
         err = (a.float() - b.float()).abs().max().item()
         assert err <= tol * b.float().abs().max().item()
+
+
+def _warp_inputs(cuda, shape, c, dtype, amplitude, out_shape=None):
+    """A volume, an upstream gradient and a grid of random displacements of
+    up to ``amplitude`` voxels (some samples leave the volume)."""
+    from deepatlas_torch.ops import identity_grid_batch, normalize_displacement
+
+    rng = np.random.RandomState(230)
+    vol = torch.from_numpy(rng.rand(*shape, c).astype(np.float32)).to(
+        cuda, dtype)
+    if out_shape is None:
+        disp = torch.from_numpy(
+            (rng.rand(*shape, 3) * 2 - 1).astype(np.float32)) * amplitude
+        grid = (normalize_displacement(disp)
+                + identity_grid_batch(shape)).to(cuda).contiguous()
+    else:
+        grid = torch.from_numpy((rng.rand(shape[0], *out_shape, 3) * 2.4
+                                 - 1.2).astype(np.float32)).to(cuda)
+    ct = torch.from_numpy(rng.randn(*grid.shape[:4], c).astype(
+        np.float32)).to(cuda, dtype)
+    return vol, grid, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,amplitude,out_shape", [
+    ((1, 13, 17, 11), 1, 2.5, None), ((2, 9, 8, 35), 3, 6.0, None),
+    ((1, 4, 5, 300), 2, 1.0, None), ((2, 7, 6, 5), 2, 0.0, (3, 4, 9))],
+    ids=["one_channel", "batch_channels", "wide", "other_output_shape"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernels_match_plain_on_card(cuda, shape, c, amplitude,
+                                          out_shape, dtype):
+    """Kernels E, F and G at odd sizes, batch 2, several channels, samples
+    past every border and a grid of another shape than the volume.  Both
+    sides compute the same float32 weights; the warp's output is rounded
+    once to the values' type (1e-2 in bf16, 1e-5 in float32), the grid
+    gradient (1e-4) and the splat (1e-5, float atomics in any order) are
+    float32 in both types."""
+    from deepatlas_torch import kernels
+
+    vol, grid, ct = _warp_inputs(cuda, shape, c, dtype, amplitude, out_shape)
+    before = kernels.launch_counts()
+    got = (kernels.warp_trilinear(vol, grid),
+           kernels.warp_grid_grad(vol, grid, ct),
+           kernels.splat_trilinear(ct, grid, shape[1:]))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("warp_trilinear", "warp_grid_grad", "splat_trilinear"):
+        assert after[name] == before[name] + 1
+    ref = (kernels.warp_trilinear_plain(vol, grid),
+           kernels.warp_grid_grad_plain(vol, grid, ct),
+           kernels.splat_trilinear_plain(ct, grid, shape[1:]))
+    assert kernels.launch_counts() == after         # plain launches nothing
+    tols = (1e-5 if dtype == torch.float32 else 1e-2, 1e-4, 1e-5)
+    for a, b, tol in zip(got, ref, tols):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item()
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype \
+        == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_sample_backward_on_card(cuda, dtype):
+    """The differentiable entry point with the clamp: dvol through G and
+    dgrid through F against the same Function on the plain math; F and G
+    launch only for an input that requires a gradient."""
+    from deepatlas_torch import kernels
+
+    vol0, grid0, ct = _warp_inputs(cuda, (1, 12, 10, 37), 2, dtype, 6.0)
+
+    def grads(vol_grad=True, mode="full"):
+        v = vol0.clone().requires_grad_(vol_grad)
+        g = grid0.clone().requires_grad_(True)
+        kernels.grid_sample(v, g, max_disp=3, grad=mode).backward(ct)
+        torch.cuda.synchronize()
+        return v.grad, g.grad
+
+    def launched(fn, *args, **kwargs):
+        before = kernels.launch_counts()
+        out = fn(*args, **kwargs)
+        after = kernels.launch_counts()
+        return out, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    got, counts = launched(grads)
+    assert counts == {"warp_trilinear": 1, "warp_grid_grad": 1,
+                      "splat_trilinear": 1}
+    _, counts = launched(grads, vol_grad=False)
+    assert counts == {"warp_trilinear": 1, "warp_grid_grad": 1}
+    (_, no_grid), counts = launched(grads, mode="values")
+    assert counts == {"warp_trilinear": 1, "splat_trilinear": 1}
+    assert no_grid is None
+    with plain_math():
+        ref = grads()
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for a, b, tol in zip(got, ref, (1e-5 if dtype == torch.float32
+                                    else 1e-2, 1e-4)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item()
+    # past the clamp's bound the field gets no gradient
+    assert (got[1] == 0).any() and (got[1] != 0).any()
+
+
+@pytest.mark.cuda
+def test_warp_wrappers_raise_on_mixed_devices(cuda):
+    from deepatlas_torch import kernels
+
+    vol = torch.zeros(1, 4, 4, 4, 1, device=cuda)
+    with pytest.raises(ValueError, match="operands on"):
+        kernels.warp_trilinear(vol, torch.zeros(1, 4, 4, 4, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout", [((2, 5, 7, 20), 2, 16),
+                                            ((1, 6, 9, 67), 16, 32),
+                                            ((1, 21, 25, 21), 32, 32),
+                                            ((1, 3, 8, 41), 24, 3),
+                                            ((1, 4, 4, 4), 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_conv_on_card(cuda, shape, cin, cout, dtype):
+    """Stride 2 of kernels A and D at odd and even sizes (``ceil(n / 2)``
+    outputs, ragged tiles, the padding at every border) and every channel
+    variant, then one backward of the strided Function: forward and ``dW``
+    on the strided kernels, ``dx`` on the stride-1 kernel over the
+    zero-stuffed gradient.  Tolerances as for stride 1."""
+    from deepatlas_torch.kernels import conv3d_k3, conv3d_k3_plain
+
+    rng = np.random.RandomState(230)
+    x0 = torch.from_numpy(rng.randn(*shape, cin).astype(np.float32)).to(
+        cuda, dtype)
+    w0 = torch.from_numpy((rng.randn(3, 3, 3, cin, cout) * 0.1).astype(
+        np.float32)).to(cuda)
+    b0 = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda)
+    out_shape = (shape[0],) + tuple(-(-n // 2) for n in shape[1:])
+    ct = torch.from_numpy(rng.randn(*out_shape, cout).astype(
+        np.float32)).to(cuda, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+
+    def close(a, b, tol):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item()
+
+    got = conv3d_k3(x0, w0, b0, stride=2)
+    assert got.shape == out_shape + (cout,)
+    close(got, conv3d_k3_plain(x0, w0, b0, stride=2), tol)
+    dw = conv3d_k3_wgrad(x0, ct, stride=2)
+    assert torch.equal(dw, conv3d_k3_wgrad(x0, ct, stride=2))
+    close(dw, conv3d_k3_wgrad_plain(x0, ct, stride=2), 1e-4)
+
+    def grads():
+        x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+        conv3d_k3(x, w, b, stride=2).backward(ct)
+        torch.cuda.synchronize()
+        return x.grad, w.grad, b.grad
+
+    counts = {k: f.launches for k, (f, _) in KERNELS.items()}
+    got = grads()
+    launched = {k: f.launches - counts[k] for k, (f, _) in KERNELS.items()}
+    assert {k: v for k, v in launched.items() if v} == {
+        "conv3d_k3": 2, "conv3d_k3_wgrad": 1}
+    with plain_math():
+        ref = grads()
+    for a, b in zip(got, ref):
+        close(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c", [((1, 5, 7, 20), 8), ((2, 3, 4, 33), 5),
+                                     ((1, 4, 6, 9), 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nearest_up2x_on_card(cuda, shape, c, dtype):
+    """The VoxelMorph decoder's 2x upsample on the transposed-conv kernel
+    with the identity bank: one launch, equal to ``nearest_resize`` bit for
+    bit (every tap is a copy); its input gradient, a sum of 8 values through
+    the backward's matrix product, within 1e-5 (float32) or one rounding
+    (bfloat16) of the float32 sum."""
+    from deepatlas_torch.kernels import deconv2x, nearest_up2x
+    from deepatlas_torch.ops import nearest_resize
+
+    rng = np.random.RandomState(230)
+    x = torch.from_numpy(rng.randn(*shape, c).astype(np.float32)).to(
+        cuda, dtype).requires_grad_(True)
+    out_shape = tuple(2 * n for n in shape[1:])
+    ct = torch.from_numpy(rng.randn(shape[0], *out_shape, c).astype(
+        np.float32)).to(cuda, dtype)
+    before = deconv2x.launches
+    got = nearest_up2x(x)
+    got.backward(ct)
+    torch.cuda.synchronize()
+    assert deconv2x.launches == before + 1
+    assert torch.equal(got.detach(), nearest_resize(x.detach(), out_shape))
+    b, d, h, w = shape
+    ref = ct.float().view(b, d, 2, h, 2, w, 2, c).sum(dim=(2, 4, 6))
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    assert x.grad.dtype == dtype
+    err = (x.grad.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item()
