@@ -8,7 +8,7 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      every float32 reference.
   2. build   -- compile the CUDA sources of deepatlas_torch/kernels/csrc.
   3. kernels -- each kernel against its plain PyTorch version at every
-     shape the three main paths launch it at, in float32 and bfloat16, with
+     shape the four main paths launch it at, in float32 and bfloat16, with
      kernel / plain / library (cuDNN) times from CUDA events and the least
      time the card could take (``bound_ms``).  Serving: the UNet_light tile
      forward (batch 4 of 128^3 tiles).  Training: one step on a 168x200x168
@@ -25,7 +25,16 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      step's call) and two bfloat16 channels, on a smooth field (up to 2.5
      voxels) and on a saturated one (up to 20 voxels, clamped to 8), and at
      one odd small shape; then the differentiable entry point's two
-     gradients against the same Function on the plain versions.
+     gradients against the same Function on the plain versions.  Joint:
+     the warp and splat again at the anatomy's 32 channels (bfloat16
+     probabilities, the float32 one-hot the f-hard branch splats), and the
+     matched-label kernels (the matched warp, its fused derivative planes,
+     its grid cotangent) at 1x168x200x168 with 32 block labels on the
+     smooth and the saturated field and at one odd small shape, each run
+     twice and required bit-identical, with ``F.grid_sample`` of the
+     32-channel one-hot as the library yardstick; then the anatomy dice's
+     deformation gradient three ways (fused, value kernel + grid cotangent,
+     plain versions), counted apart from the main paths.
   4. main    -- the segmentation serving path: a synthetic OAI-ZIB corpus
      (160x384x384 volumes, labels 0..4, from ``--seed``), UNet_light with
      seeded weights and BatchNorm statistics saved as a checkpoint, and
@@ -64,10 +73,32 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      and folding fraction must be finite.  The counts are read when the CLI
      returns.  After that, counted apart, the splat is launched through
      ``ops.warp_values_adjoint`` on the trained field, where
-     <warp(v), c> = <v, splat(c)> must hold: no main path launches the
-     splat yet (it is the warp's gradient in the moving image, which only
-     the joint training will ask for).  One step's gradients through
-     the kernels must agree with the same step on the plain versions.
+     <warp(v), c> = <v, splat(c)> must hold (the registration step does not
+     launch the splat: the moving image is data).  One step's gradients
+     through the kernels must agree with the same step on the plain
+     versions.
+  7. joint   -- the joint DeepAtlas path: the registration corpus (4
+     training and 2 validation volumes, at 0.1 of full intensity so that
+     most of the joint recipe's untrained field is not past the clamp:
+     ``JOINT_INTENSITY``) and ``train_deepatlas_torch.main
+     --num-samples 21 --num-epochs 1 --n-labeled 2 --max-validation-pairs
+     2``: 42 iterations at the recipe's full width (UNet_light with 32
+     classes and VoxelMorph, both bf16; the seg phase on even iterations,
+     the reg phase on odd ones), one validation, a joint checkpoint and
+     ``test()``.  With 2 of 4 volumes labelled every seg regime (soft,
+     f-hard, m-hard, hard) and the reg step's label substitution must run;
+     each step's launches must equal the table of its regime
+     (``joint_seg_launches``, ``joint_reg_launches``), read when the CLI
+     returns; every metric must be finite, the reg phase's similarity must
+     fall (last 5 steps against the first 5) and the test Dice and folding
+     must be finite.  Then, on two states (the CLI's seeded draw of both
+     nets in float32 and its trained checkpoint in bf16), one seg step per
+     regime (twice through the kernels: G's atomics) and one reg step with
+     and without substitution, through the kernels against the plain versions: the
+     parameter gradients within ``JOINT_GRAD_TOL``, the step's metrics
+     within ``STEP_METRIC_TOL``; on the trained state each step is
+     profiled.  The seeded draw's untrained field is also measured on the
+     first pair at the corpus's intensity and at three times it.
 
 Then the ``nvidia-smi`` line, the kernels summary line and, last,
 ``{"ok": true, "device": {...}}``.  Run with no arguments:
@@ -75,6 +106,7 @@ Then the ``nvidia-smi`` line, the kernels summary line and, last,
 """
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -108,8 +140,14 @@ KERNEL_INFO = {
                        "deepatlas_tpu/pallas/warp.py:415"),
     "splat_trilinear": ("deepatlas_torch/kernels/csrc/warp.cu",
                         "deepatlas_tpu/pallas/splat.py:106"),
+    "matched_warp_fused": ("deepatlas_torch/kernels/csrc/anatomy.cu",
+                           "deepatlas_tpu/pallas/anatomy.py:116"),
+    "matched_warp": ("deepatlas_torch/kernels/csrc/anatomy.cu",
+                     "deepatlas_tpu/pallas/anatomy.py:46"),
+    "matched_grid_grad": ("deepatlas_torch/kernels/csrc/anatomy.cu",
+                          "deepatlas_tpu/pallas/anatomy.py:213"),
 }
-PATHS = ("serving", "training", "registration")
+PATHS = ("serving", "training", "registration", "joint")
 
 # relative tolerances max|kernel - plain| / max|plain|: float32 differs
 # only in summation order; bfloat16 inputs are identical on both sides and
@@ -140,6 +178,17 @@ GRAD_TOL = {"float32": 2e-3, "bfloat16_mean": 5e-2}
 WARP_TOL = {"warp_trilinear": {"float32": 1e-5, "bfloat16": 1e-2},
             "warp_grid_grad": {"float32": 1e-4, "bfloat16": 1e-4},
             "splat_trilinear": {"float32": 1e-5, "bfloat16": 1e-5}}
+# the matched-label kernels against their plain versions: m lies in [0, 1]
+# and both sides add the same 8 exact products w_k * {0, 1} in corner
+# order, so it is held absolutely; the derivative planes (and J's cotangent)
+# are the weight derivatives added in another order than autograd's and
+# scaled by (n - 1) / 2 up to 99.5: relative to their largest entry
+MATCHED_TOL = {"m": 1e-6, "planes": 1e-5}
+# the anatomy dice through the kernels against the plain versions: the same
+# per-class sums (float32 index_add_, atomics in any order over 5.6 M
+# voxels) and the same per-point gradients
+ANATOMY_LOSS_TOL = 1e-5
+ANATOMY_GRAD_TOL = 1e-4
 # one registration step's parameter gradients, kernels against plain
 # versions, per tensor relative to its largest entry.  float32: summation
 # order through 11 convs, the warp and LNCC's cancelling window sums, held
@@ -151,6 +200,25 @@ WARP_TOL = {"warp_trilinear": {"float32": 1e-5, "bfloat16": 1e-2},
 # entry, on two trained states; a typical entry is a tenth of the largest,
 # so a zeroed or wrong tensor is far outside either).
 REG_GRAD_TOL = {"float32": 2e-3, "bfloat16_mean": 1e-3, "bfloat16_max": 2e-2}
+# one joint step's parameter gradients through the kernels against the plain
+# versions, per tensor relative to its largest entry, on two states: the
+# CLI's seeded draw in float32 (nets and anatomy) and its trained checkpoint
+# in bfloat16, as the CLI runs.  The seg step is held in the mean over a
+# tensor's entries, the reg step in the mean and at the worst entry; each
+# limit is 4-10 times the largest reading of runs on an H100 (in PERF.md),
+# where a zeroed tensor reads about 0.1 in the mean and 1 at the worst
+# entry.  Readings: bfloat16 seg 1.2e-2, reg 1.3e-3 and 9.0e-3; float32 seg
+# 4.3e-3, reg 1.9e-6 and 2.4e-5.  The seeded draw's seg net has BatchNorm
+# gradients that are sums over 5.6 M voxels which nearly cancel: summation
+# order alone moves them that far in float32, and one bf16 rounding flipped
+# by 6-10% of their largest entry, so the draw is held in float32.
+JOINT_GRAD_TOL = {
+    "float32": {"seg_mean": 2e-2, "reg_mean": 2e-5, "reg_max": 2e-4},
+    "bfloat16": {"seg_mean": 5e-2, "reg_mean": 1e-2, "reg_max": 5e-2}}
+# the same steps' metrics (loss, anatomy and supervised dice, similarity,
+# smoothness, overflow share), kernels against plain versions, held
+# absolutely: 3.0e-5 at worst on both states (PERF.md)
+STEP_METRIC_TOL = 2e-4
 # <warp(v), c> against <v, splat(c)>, float32 sums of 5.6 M products
 # accumulated in float64 on the card: relative difference
 ADJOINT_TOL = 1e-4
@@ -170,12 +238,10 @@ TRAIN_CLASSES = 32
 N_TRAIN_VOLUMES = 4
 TRAIN_STEPS = 42
 # launches of one training step / one evaluated volume
-STEP_LAUNCHES = {"conv3d_k3": 27, "deconv2x": 3, "conv3d_point": 2,
-                 "conv3d_k3_wgrad": 14, "warp_trilinear": 0,
-                 "warp_grid_grad": 0, "splat_trilinear": 0}
-EVAL_LAUNCHES = {"conv3d_k3": 14, "deconv2x": 3, "conv3d_point": 1,
-                 "conv3d_k3_wgrad": 0, "warp_trilinear": 0,
-                 "warp_grid_grad": 0, "splat_trilinear": 0}
+NO_LAUNCHES = dict.fromkeys(KERNEL_INFO, 0)
+STEP_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=27, deconv2x=3, conv3d_point=2,
+                     conv3d_k3_wgrad=14)
+EVAL_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=14, deconv2x=3, conv3d_point=1)
 
 # the registration recipe of train_reg_torch.py
 REG_ENC = (16, 32, 32, 32, 32)
@@ -188,12 +254,72 @@ N_REG_VALID_VOLUMES = 2
 # the decoder's upsample to full resolution on the transposed-conv kernel
 # (its backward is a matrix product), the warp and its grid gradient; the
 # moving image needs no gradient, so no splat
-REG_STEP_LAUNCHES = {"conv3d_k3": 21, "deconv2x": 1, "conv3d_point": 0,
-                     "conv3d_k3_wgrad": 11, "warp_trilinear": 1,
-                     "warp_grid_grad": 1, "splat_trilinear": 0}
-REG_EVAL_LAUNCHES = {"conv3d_k3": 11, "deconv2x": 1, "conv3d_point": 0,
-                     "conv3d_k3_wgrad": 0, "warp_trilinear": 1,
-                     "warp_grid_grad": 0, "splat_trilinear": 0}
+REG_STEP_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=21, deconv2x=1,
+                         conv3d_k3_wgrad=11, warp_trilinear=1,
+                         warp_grid_grad=1)
+REG_EVAL_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=11, deconv2x=1,
+                         warp_trilinear=1)
+
+# the joint recipe of train_deepatlas_torch.py: 2 of the 4 training volumes
+# labelled, so the 12 ordered pairs hold 2 hard, 4 m-hard, 4 f-hard and 2
+# soft ones
+JOINT_N_LABELED = 2
+JOINT_ITERATIONS = 42
+# the joint corpus's intensity scale (write_reg_corpus): the joint recipe
+# draws its VoxelMorph from the seeded generator after its UNet_light, and
+# that draw's untrained field, proportional to its input, is past the
+# 8-voxel clamp on the first training pair at 99.5% of the voxels on
+# 0.3-scale images, where the clamp passes almost no gradient, and at 55.9%
+# at 0.1, from where the reg phase brings it inside within a few steps
+# (joint_check's untrained_disp_overflow, measured on an H100)
+JOINT_INTENSITY = 0.1
+REGIMES = ("soft", "f_hard", "m_hard", "hard")
+
+
+def add_launches(*tables):
+    out = dict(NO_LAUNCHES)
+    for table in tables:
+        for k, v in table.items():
+            out[k] += v
+    return out
+
+
+# the frozen reg net's deformation in a seg step: VoxelMorph's forward
+# convs and its upsample, no warp (the seg phase warps anatomies only)
+REG_FORWARD_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=11, deconv2x=1)
+# the anatomy of a seg step by branch (hard_fused): soft warps the moving
+# probabilities (C = 32) and splats their gradient; f_hard splats the fixed
+# one-hot (C = 32) and warps nothing; m_hard warps the moving one-hot once,
+# as a constant; hard takes the matched-label warp and a C = 1 splat of
+# ones.  Without hard_fused every step takes the soft branch.
+SEG_ANATOMY_LAUNCHES = {
+    "soft": {"warp_trilinear": 1, "splat_trilinear": 1},
+    "f_hard": {"splat_trilinear": 1},
+    "m_hard": {"warp_trilinear": 1},
+    "hard": {"matched_warp": 1, "splat_trilinear": 1}}
+# the reg step's anatomy: fused, the matched warp with its planes, the splat
+# of ones and that splat's backward on the grid-gradient kernel; dense (past
+# the guard's last rung), the C = 32 one-hot warp and its grid gradient
+REG_ANATOMY_LAUNCHES = {
+    True: {"matched_warp_fused": 1, "splat_trilinear": 1,
+           "warp_grid_grad": 1},
+    False: {"warp_trilinear": 1, "warp_grid_grad": 1}}
+
+
+def joint_seg_launches(regime, hard_fused=True):
+    """A joint seg step's launches: the frozen reg net's forward, two
+    UNet_light training passes (moving, then fixed) and the anatomy."""
+    return add_launches(REG_FORWARD_LAUNCHES, STEP_LAUNCHES, STEP_LAUNCHES,
+                        SEG_ANATOMY_LAUNCHES[regime if hard_fused else
+                                             "soft"])
+
+
+def joint_reg_launches(substituted, fused_anatomy=True):
+    """A joint reg step's launches: one UNet_light eval forward per side
+    whose labels are replaced by the frozen seg net's prediction, the
+    VoxelMorph training step and the anatomy."""
+    return add_launches(*[EVAL_LAUNCHES] * substituted, REG_STEP_LAUNCHES,
+                        REG_ANATOMY_LAUNCHES[fused_anatomy])
 
 
 def log(obj):
@@ -364,6 +490,20 @@ def library_call(kernel, x, w, stride=1):
     return lambda: F.conv_transpose3d(xc, wk.permute(3, 4, 0, 1, 2), stride=2)
 
 
+def unit_counts(path, role, per_unit):
+    """The units a conv case's launches count in: its own path's, and the
+    joint unit's (one reg step without label substitution and one seg step
+    in each of the four label regimes): every seg step runs two UNet_light
+    training passes and the frozen VoxelMorph's forward, the reg step one
+    VoxelMorph training step."""
+    yield path, per_unit
+    if path == "training":
+        yield "joint", 2 * len(REGIMES) * per_unit
+    elif path == "registration":
+        frozen = len(REGIMES) if role in ("forward", "forward_s2") else 0
+        yield "joint", (1 + frozen) * per_unit
+
+
 def check_kernels(seed):
     """Phase 3, convolutions: each against its plain version at every shape
     of the three paths in both types.  Returns ``{kernel: {"max_abs_err",
@@ -443,11 +583,13 @@ def check_kernels(seed):
                                                err)
             if dname == "bfloat16":       # the main paths' type, per unit
                 flops, nbytes = work(name, n, cin, cout, dname, n_out, role)
-                tot = summary[name][path]
-                for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("library_ms", lib_ms), ("bound_ms", bms),
-                                 ("flops", flops), ("bytes", nbytes)):
-                    tot[key] += per_unit * val
+                for upath, times in unit_counts(path, role, per_unit):
+                    tot = summary[name][upath]
+                    for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                     ("library_ms", lib_ms),
+                                     ("bound_ms", bms), ("flops", flops),
+                                     ("bytes", nbytes)):
+                        tot[key] += times * val
             del x, second, args, timed_args
     torch.cuda.empty_cache()
     return summary
@@ -526,14 +668,31 @@ def warp_bytes(kernel, n, c, elem):
     return n * (12 + elem * c + 2 * 4 * c)
 
 
+# the joint unit's warp-kernel calls by (channels, type): the reg step's
+# image warp, its grid gradient and the splat of ones with that splat's
+# backward (float32, C = 1); the soft and m-hard seg steps' C = 32 warp, the
+# soft step's C = 32 splat of its bfloat16 probability gradient, the f-hard
+# step's C = 32 splat of the float32 one-hot, the hard step's splat of ones
+JOINT_WARP_UNIT = {
+    "warp_trilinear": {(1, "float32"): 1, (TRAIN_CLASSES, "bfloat16"): 2},
+    "warp_grid_grad": {(1, "float32"): 2},
+    "splat_trilinear": {(1, "float32"): 2, (TRAIN_CLASSES, "bfloat16"): 1,
+                        (TRAIN_CLASSES, "float32"): 1}}
+
+
 def check_warp_kernels(summary, seed):
     """Phase 3, warp kernels: E, F and G against their plain versions, with
     kernel / plain / library (``F.grid_sample``, timed on float32 values:
     it wants the grid in the values' type, and a bfloat16 grid cannot
     address 168 voxels) times.  Its one backward call computes both the
     grid gradient and the splat, so that time stands beside each of them.
-    Fills ``summary`` with the float32 one-channel smooth-field case, the
-    registration step's call."""
+    The cases: the registration step's image warp (float32, one channel),
+    two bfloat16 channels, the joint training's anatomy warps (32 one-hot
+    or probability channels: bfloat16, and float32 for the f-hard splat)
+    and an odd small shape.  Fills ``summary``'s registration unit with the
+    float32 one-channel smooth-field case and its joint unit with the calls
+    of one reg step and one seg step per label regime (``JOINT_WARP_UNIT``).
+    """
     import torch
     import torch.nn.functional as F
 
@@ -546,7 +705,10 @@ def check_warp_kernels(summary, seed):
              ("saturated", full, 1, torch.float32, 20.0),
              ("smooth", full, 2, torch.bfloat16, 2.5),
              ("saturated", full, 2, torch.bfloat16, 20.0),
+             ("smooth", full, TRAIN_CLASSES, torch.bfloat16, 2.5),
+             ("smooth", full, TRAIN_CLASSES, torch.float32, 2.5),
              ("odd", (2, 13, 17, 11), 3, torch.float32, 3.0)]
+    per_call = {}
     for field, shape, c, dtype, amp in cases:
         dname = str(dtype).split(".")[1]
         big = shape == full
@@ -596,7 +758,8 @@ def check_warp_kernels(summary, seed):
             lib_ms = cuda_ms(library, reps=5)
             nbytes = warp_bytes(name, n, c, 2 if dname == "bfloat16" else 4)
             bms = nbytes / HBM_BYTES_PER_S * 1e3
-            log({"phase": "kernels", "path": "registration", "kernel": name,
+            log({"phase": "kernels", "kernel": name, "path":
+                 "joint" if c == TRAIN_CLASSES else "registration",
                  "field": field, "dtype": dname, "vol": list(vol.shape),
                  "max_disp": REG_MAX_DISP, "max_abs_err": err,
                  "max_abs_ref": scale, "rel_tol": tol, "ok": ok,
@@ -610,8 +773,8 @@ def check_warp_kernels(summary, seed):
                                      f"max|k-p| {err} > {tol} * {scale}")
             summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
                                                err)
-            if big and field == "smooth" and dtype == torch.float32:
-                summary[name]["registration"].update(
+            if big and field == "smooth":
+                per_call[(name, c, dname)] = dict(
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bms, flops=0.0, bytes=float(nbytes))
         del out_l, vol_l, grid_l, ct_l, calls
@@ -639,15 +802,233 @@ def check_warp_kernels(summary, seed):
             errs[key] = {"max_abs_err": err, "max_abs_ref": scale,
                          "rel_tol": tol, "ok": err <= tol * scale}
         saturated = (grads[0][1] == 0).all(dim=-1).float().mean().item()
-        log({"phase": "kernels", "path": "registration",
-             "kernel": "grid_sample (entry point)", "field": field,
+        log({"phase": "kernels", "kernel": "grid_sample (entry point)",
+             "path": "joint" if c == TRAIN_CLASSES else "registration",
+             "field": field,
              "dtype": dname, "vol": list(vol.shape), "gradients": errs,
              "points_without_grid_gradient": saturated})
         if not all(e["ok"] for e in errs.values()):
             raise AssertionError(f"grid_sample gradients {field} {dname}: "
                                  f"{errs}")
         del grads, vol, ct, grid, raw
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    for name in ("warp_trilinear", "warp_grid_grad", "splat_trilinear"):
+        summary[name]["registration"].update(per_call[(name, 1, "float32")])
+        for key, times in JOINT_WARP_UNIT[name].items():
+            for k, v in per_call[(name,) + key].items():
+                summary[name]["joint"][k] += times * v
+
+
+def block_labels(shape, shift=(0, 0, 0)):
+    """``(B, D, H, W)`` int32 labels 0..31 on the card: a 4 x 4 x 2 grid of
+    blocks, as the synthetic corpora label their volumes, moved by
+    ``shift`` voxels."""
+    import torch
+
+    b, d, h, w = shape
+    idx = [((torch.arange(n, device="cuda") + sh) * blocks // n).clamp(
+        0, blocks - 1) for n, sh, blocks in zip((d, h, w), shift, (4, 4, 2))]
+    lab = (idx[0][:, None, None] * 4 + idx[1][None, :, None]) * 2 \
+        + idx[2][None, None, :]
+    return lab.expand(b, d, h, w).to(torch.int32).contiguous()
+
+
+def matched_bytes(name, n):
+    """Bytes the function must move on ``n`` sample points: 12 of
+    coordinates, 4 of ``lab_f`` and 4 of ``lab_m`` read per point; H writes
+    ``m`` (4), I ``m`` and three planes (16), J reads ``ct`` (4) and writes
+    three planes (12)."""
+    return n * {"matched_warp": 24, "matched_warp_fused": 36,
+                "matched_grid_grad": 36}[name]
+
+
+def check_anatomy_kernels(summary, seed):
+    """Phase 3, the matched-label kernels H, I and J against their plain
+    versions at 1x168x200x168 with 32 block labels, on a smooth field (up to
+    2.5 voxels) and a saturated one (up to 20 voxels, clamped to 8), and at
+    one odd small shape with random labels; each launched twice and
+    required bit-identical; J equal bit for bit to ``ct`` times I's planes.
+    Times: kernel, plain version, library (``F.grid_sample`` of the C = 32
+    float32 one-hot: its forward for H, forward and grid backward for I and
+    J) and the byte bound.  Then ``hard_anatomy_dice``'s deformation
+    gradient three ways: through I (fused), through H and J, and on the
+    plain versions.  Fills ``summary``'s joint unit: H once (the hard seg
+    step), I once (the reg step); J, on no main path, per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepatlas_torch import kernels
+    from deepatlas_torch.kernels import launch_counts
+    from deepatlas_torch.ops import clamp_displacement, one_hot
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    full = (1,) + TRAIN_SHAPE
+    apart = {}
+    for field, shape, amp in (("smooth", full, 2.5), ("saturated", full, 20.0),
+                              ("odd", (2, 13, 17, 11), 3.0)):
+        big = shape == full
+        raw = smooth_grid(shape, amp, seed)
+        grid = clamp_displacement(raw, REG_MAX_DISP).contiguous()
+        if big:
+            lab_f, lab_m = block_labels(shape), block_labels(shape, (2, -3, 1))
+        else:
+            lab_f, lab_m = (torch.randint(0, TRAIN_CLASSES, shape,
+                                          generator=gen, device="cuda",
+                                          dtype=torch.int32)
+                            for _ in range(2))
+        ct = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+        n = int(np.prod(shape))
+        onehot_l = one_hot(lab_m.long(), TRAIN_CLASSES).permute(
+            0, 4, 1, 2, 3).contiguous()
+        grid_l = grid.clone().requires_grad_(True)
+        ct_l = torch.rand(onehot_l.shape, generator=gen, device="cuda")
+
+        def library_fwd():
+            return F.grid_sample(onehot_l, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+        def library_fwd_bwd():
+            out = F.grid_sample(onehot_l, grid_l, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+            return torch.autograd.grad(out, grid_l, ct_l)
+
+        args = (lab_m, lab_f, grid)
+        calls = {
+            "matched_warp": (lambda: kernels.matched_warp(*args),
+                             lambda: kernels.matched_warp_plain(*args),
+                             library_fwd),
+            "matched_warp_fused": (
+                lambda: kernels.matched_warp_fused(*args),
+                lambda: kernels.matched_warp_fused_plain(*args),
+                library_fwd_bwd),
+            "matched_grid_grad": (
+                lambda: kernels.matched_grid_grad(*args, ct),
+                lambda: kernels.matched_grid_grad_plain(*args, ct),
+                library_fwd_bwd)}
+        before = launch_counts()
+        for name, (fn, plain, library) in calls.items():
+            got, again, ref = fn(), fn(), plain()
+            torch.cuda.synchronize()
+            if not isinstance(got, tuple):
+                got, again, ref = (got,), (again,), (ref,)
+            identical = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs = []
+            for a, b in zip(got, ref):
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise AssertionError(f"{name} {shape}: kernel gives "
+                                         f"{tuple(a.shape)} {a.dtype}, plain "
+                                         f"{tuple(b.shape)} {b.dtype}")
+                err = (a - b).abs().max().item()
+                # m: an absolute bound; planes: relative to the largest
+                scale = 1.0 if b.dim() == 4 else b.abs().max().item()
+                tol = MATCHED_TOL["m" if b.dim() == 4 else "planes"]
+                errs.append({"max_abs_err": err, "scale": scale,
+                             "tol": tol * scale,
+                             "ok": bool(np.isfinite(err)) and err <= tol
+                             * scale})
+            del got, again, ref
+            ms = cuda_ms(fn, reps=5)
+            plain_ms = cuda_ms(plain, reps=2 if big else 3)
+            lib_ms = cuda_ms(library, reps=3)
+            bms = matched_bytes(name, n) / HBM_BYTES_PER_S * 1e3
+            log({"phase": "kernels", "path": "joint", "kernel": name,
+                 "field": field, "labels": list(lab_m.shape),
+                 "classes": TRAIN_CLASSES, "max_disp": REG_MAX_DISP,
+                 "outputs_vs_plain": errs, "bit_identical_rerun": identical,
+                 "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "library": "F.grid_sample forward, C=32 float32 one-hot"
+                 + ("" if name == "matched_warp" else " + grid backward"),
+                 "bound_ms": bms, "bound_by": "bytes"})
+            if not identical or not all(e["ok"] for e in errs):
+                raise AssertionError(f"{name} {field} {shape}: {errs}, "
+                                     f"bit-identical rerun {identical}")
+            summary[name]["max_abs_err"] = max(
+                summary[name]["max_abs_err"],
+                max(e["max_abs_err"] for e in errs))
+            if big and field == "smooth":
+                summary[name]["joint"].update(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bms, flops=0.0,
+                    bytes=float(matched_bytes(name, n)))
+        # J is ct times I's planes, bit for bit
+        _, planes = kernels.matched_warp_fused(*args)
+        if not torch.equal(kernels.matched_grid_grad(*args, ct),
+                           ct[..., None] * planes):
+            raise AssertionError(f"matched_grid_grad {field}: not ct * the "
+                                 f"fused planes")
+        del planes, onehot_l, grid_l, ct_l
+
+        # the anatomy dice's deformation gradient three ways
+        vals, grads, launched = {}, {}, {}
+        for way in ("fused", "matched_grid_grad", "plain"):
+            g = raw.clone().requires_grad_(True)
+            start = launch_counts()
+            with plain_math() if way == "plain" else contextlib.nullcontext():
+                loss = kernels.hard_anatomy_dice(
+                    lab_m, lab_f, g, TRAIN_CLASSES, max_disp=REG_MAX_DISP,
+                    fused_grad=way != "matched_grid_grad")
+                loss.backward()
+            torch.cuda.synchronize()
+            vals[way], grads[way] = loss.item(), g.grad
+            end = launch_counts()
+            launched[way] = {k: end[k] - start[k] for k in end
+                             if end[k] != start[k]}
+        want = {"fused": {"matched_warp_fused": 1, "splat_trilinear": 1,
+                          "warp_grid_grad": 1},
+                "matched_grid_grad": {"matched_warp": 1, "splat_trilinear": 1,
+                                      "matched_grid_grad": 1,
+                                      "warp_grid_grad": 1},
+                "plain": {}}
+        scale = grads["plain"].abs().max().item()
+        agree = {way: {"loss": vals[way], "loss_abs_err":
+                       abs(vals[way] - vals["plain"]),
+                       "grad_max_abs_err":
+                       (grads[way] - grads["plain"]).abs().max().item(),
+                       "launches": launched[way]}
+                 for way in ("fused", "matched_grid_grad")}
+        log({"phase": "kernels", "path": "joint",
+             "kernel": "hard_anatomy_dice (deformation gradient)",
+             "field": field, "labels": list(lab_m.shape),
+             "loss_plain": vals["plain"], "grad_max_abs_ref": scale,
+             "loss_tol": ANATOMY_LOSS_TOL,
+             "grad_rel_tol": ANATOMY_GRAD_TOL, "ways": agree,
+             "points_without_gradient":
+                 (grads["fused"] == 0).all(dim=-1).float().mean().item()})
+        for way, a in agree.items():
+            if a["launches"] != want[way] or launched["plain"] \
+                    or not a["loss_abs_err"] <= ANATOMY_LOSS_TOL \
+                    or not a["grad_max_abs_err"] <= ANATOMY_GRAD_TOL * scale:
+                raise AssertionError(f"hard_anatomy_dice {field} {way}: {a}")
+        end = launch_counts()
+        for k in end:
+            apart[k] = apart.get(k, 0) + end[k] - before[k]
+        del grads, raw, grid, lab_m, lab_f, ct
+        torch.cuda.empty_cache()
+
+    # the anatomy dice's per-class sums (index_add_, not a kernel): spread
+    # over lanes, as binned_sum adds them, against one address per class
+    from deepatlas_torch.kernels.anatomy import _BIN_LANES, binned_sum
+    lab = block_labels(full).long()
+    vals = torch.rand(lab.shape, generator=gen, device="cuda")
+
+    def one_lane():
+        return torch.zeros(TRAIN_CLASSES, device="cuda").index_add_(
+            0, lab.reshape(-1), vals.reshape(-1))
+
+    ref = one_lane()
+    err = ((binned_sum(vals, lab, TRAIN_CLASSES) - ref).abs().max()
+           / ref.abs().max()).item()
+    log({"phase": "kernels", "path": "joint",
+         "kernel": "binned_sum (index_add_, not a kernel)",
+         "labels": list(lab.shape), "classes": TRAIN_CLASSES,
+         "lanes": _BIN_LANES,
+         "ms": cuda_ms(lambda: binned_sum(vals, lab, TRAIN_CLASSES), reps=5),
+         "one_lane_ms": cuda_ms(one_lane, reps=5),
+         "rel_err_vs_one_lane": err})
+    # float32 sums of 176 k values in [0, 1) per class, in any order
+    if not err <= 1e-4:
+        raise AssertionError(f"binned_sum against one lane: {err}")
+    return apart
 
 
 def write_corpus(root, seed):
@@ -893,7 +1274,7 @@ def write_mindboggle_corpus(root, seed, shape=MB_SHAPE,
 def plain_math():
     """Run the wrappers' autograd Functions on the plain versions' math on
     the card (for the comparison only: nothing in the port does this)."""
-    from deepatlas_torch.kernels import conv3d, deconv3d, warp
+    from deepatlas_torch.kernels import anatomy, conv3d, deconv3d, warp
 
     with mock.patch.object(conv3d, "_k3_cuda", conv3d._k3_math), \
             mock.patch.object(conv3d, "_wgrad_cuda", conv3d._wgrad_math), \
@@ -903,7 +1284,12 @@ def plain_math():
             mock.patch.object(warp, "_warp_cuda", warp._warp_math), \
             mock.patch.object(warp, "_grid_grad_cuda",
                               warp._grid_grad_math), \
-            mock.patch.object(warp, "_splat_cuda", warp._splat_math):
+            mock.patch.object(warp, "_splat_cuda", warp._splat_math), \
+            mock.patch.object(anatomy, "_matched_cuda",
+                              anatomy._matched_math), \
+            mock.patch.object(anatomy, "_fused_cuda", anatomy._fused_math), \
+            mock.patch.object(anatomy, "_grid_grad_cuda",
+                              anatomy._grid_grad_math):
         yield
 
 
@@ -1163,14 +1549,14 @@ def write_reg_corpus(root, seed, shape=MB_SHAPE, max_shift=3.0,
     through its own smooth deformation of up to ``max_shift`` voxels per
     axis -- image and labels are evaluated at the displaced coordinates, so
     a registration has a few voxels to recover and a few dozen steps can
-    learn to.  Intensities are ``intensity`` of full scale (mean 0.15): an
-    untrained VoxelMorph has no bias yet, so its field is proportional to
-    its input, and on full-scale images it starts far past the 8-voxel
-    clamp at every voxel, where the clamp passes no gradient and the
-    similarity cannot move (measured on an H100: ``disp_overflow`` 1.0 and
-    a constant similarity over all 42 steps at ``intensity=1``).  The first
-    4 volumes train; the last 2 validate and test (two volumes make two
-    ordered pairs)."""
+    learn to.  Intensities are ``intensity`` of full scale (mean: half of
+    it): an untrained VoxelMorph has no bias yet, so its field is
+    proportional to its input, and on full-scale images it starts far past
+    the 8-voxel clamp at every voxel, where the clamp passes no gradient and
+    the similarity cannot move (measured on an H100: ``disp_overflow`` 1.0
+    and a constant similarity over all 42 steps at ``intensity=1``).  The
+    first 4 volumes train; the last 2 validate and test (two volumes make
+    two ordered pairs)."""
     from deepatlas_torch.data import write_nifti
 
     rng = np.random.RandomState(seed)
@@ -1454,6 +1840,453 @@ def run_reg_path(seed, workdir):
     return counts
 
 
+class JointRecorder:
+    """Wraps the joint experiment's step factories to record, per step, its
+    phase, label flags, metrics, seconds (synchronised), peak memory, the
+    kernels it launched and the launches its branch should make; per
+    evaluated volume or pair, its launches."""
+
+    def __init__(self):
+        self.steps, self.evals = [], []
+        self.first_start = self.last_end = None
+
+    def step_factory(self, make, phase):
+        import torch
+
+        from deepatlas_torch.kernels import launch_counts
+
+        def factory(*args, **kwargs):
+            step = make(*args, **kwargs)
+            fused = kwargs.get("fused_anatomy", False)
+            hard_fused = kwargs.get("hard_fused", False)
+
+            def recorded(state, other, *tensors):
+                am, af = bool(tensors[4].all()), bool(tensors[5].all())
+                before = launch_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                if self.first_start is None:
+                    self.first_start = t0
+                out = step(state, other, *tensors)
+                torch.cuda.synchronize()
+                self.last_end = time.perf_counter()
+                after = launch_counts()
+                rec = {"phase": phase, "seconds": self.last_end - t0,
+                       "peak": torch.cuda.max_memory_allocated(),
+                       "metrics": {k: float(v) for k, v in out[1].items()},
+                       "launches": {k: after[k] - before[k] for k in after}}
+                if phase == "seg":
+                    rec["regime"] = REGIMES[am * 2 + af]
+                    rec["expected"] = joint_seg_launches(rec["regime"],
+                                                         hard_fused)
+                else:
+                    rec["substituted"] = (not am) + (not af)
+                    rec["expected"] = joint_reg_launches(rec["substituted"],
+                                                         fused)
+                self.steps.append(rec)
+                return out
+
+            return recorded
+
+        return factory
+
+    def eval_factory(self, make, phase):
+        from deepatlas_torch.kernels import launch_counts
+
+        def factory(n_class):
+            step = make(n_class)
+
+            def recorded(state, *tensors):
+                before = launch_counts()
+                out = step(state, *tensors)
+                after = launch_counts()
+                self.evals.append((phase, {k: after[k] - before[k]
+                                           for k in after}))
+                return out
+
+            return recorded
+
+        return factory
+
+
+def grad_agreement(got, ref, skip=()):
+    """The worst tensor's largest and mean difference, each relative to
+    that tensor's largest reference entry: ``((max_rel, name), (mean_rel,
+    name))``."""
+    import torch
+
+    worst_max, worst_mean = (0.0, ""), (0.0, "")
+    for name, r in ref.items():
+        if name in skip:
+            continue
+        scale = r.abs().max().item()
+        diff = (got[name] - r).abs()
+        if not torch.isfinite(diff).all():
+            raise AssertionError(f"non-finite gradient in {name}")
+        worst_max = max(worst_max, (diff.max().item() / scale, name))
+        worst_mean = max(worst_mean, (diff.mean().item() / scale, name))
+    return worst_max, worst_mean
+
+
+def step_gradients_of(step, state, other, tensors):
+    """Metrics and parameter gradients of one joint step on a state whose
+    optimizer does not move (SGD at learning rate 0); BatchNorm statistics
+    are put back, so repeated calls start from the same state."""
+    import torch
+
+    saved = {k: v.clone() for k, v in state.model.state_dict().items()}
+    _, metrics = step(state, other, *tensors)
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in state.model.named_parameters()}
+    state.model.load_state_dict(saved)
+    state.optimizer.zero_grad(set_to_none=True)
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def profiled(fn, reps=2):
+    """One call of ``fn`` under ``torch.profiler`` after ``reps`` warm ones:
+    host-clock ms, device-busy ms, the idle share and the kernels by device
+    time (the 8 largest)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(event):
+        return getattr(event, "self_device_time_total",
+                       getattr(event, "self_cuda_time_total", 0))
+
+    rows = sorted(((device_us(e), e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                  reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return {"host_ms": host_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / host_ms)
+            if busy_ms else None,
+            "kernels": [{"name": key[:80], "ms": us / 1e3, "launches": n}
+                        for us, n, key in rows[:8]]}
+
+
+def run_joint_path(seed, workdir):
+    import torch
+
+    import train_deepatlas_torch
+    from deepatlas_torch.data import (Compose, CropVolume, VolumeToArray,
+                                      get_reg_dataset)
+    from deepatlas_torch.kernels import (grid_sample, launch_counts,
+                                         reset_launch_counts)
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.models import get_network
+    from deepatlas_torch.ops import displacement_overflow
+    from deepatlas_torch.train import (TrainState, deepatlas,
+                                       load_checkpoint, make_joint_reg_step,
+                                       make_joint_seg_step)
+
+    t0 = time.perf_counter()
+    write_reg_corpus(workdir, seed, intensity=JOINT_INTENSITY)
+    setup_s = time.perf_counter() - t0
+
+    argv = ["--data-root", workdir, "--log-root", "logs", "--num-samples",
+            "21", "--num-epochs", "1", "--n-labeled", str(JOINT_N_LABELED),
+            "--max-validation-pairs", "2", "--device", "cuda"]
+    rec = JointRecorder()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(workdir), contextlib.redirect_stdout(out), \
+            mock.patch.object(deepatlas, "make_joint_seg_step",
+                              rec.step_factory(deepatlas.make_joint_seg_step,
+                                               "seg")), \
+            mock.patch.object(deepatlas, "make_joint_reg_step",
+                              rec.step_factory(deepatlas.make_joint_reg_step,
+                                               "reg")), \
+            mock.patch.object(deepatlas, "make_seg_eval_step",
+                              rec.eval_factory(deepatlas.make_seg_eval_step,
+                                               "seg")), \
+            mock.patch.object(deepatlas, "make_reg_eval_step",
+                              rec.eval_factory(deepatlas.make_reg_eval_step,
+                                               "reg")):
+        seg_pc, seg_dice, reg_pc, reg_dice, folding = \
+            train_deepatlas_torch.main(argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = launch_counts()
+
+    seg_steps = [r for r in rec.steps if r["phase"] == "seg"]
+    reg_steps = [r for r in rec.steps if r["phase"] == "reg"]
+    want = add_launches(*[r["expected"] for r in rec.steps],
+                        *[EVAL_LAUNCHES if phase == "seg" else
+                          REG_EVAL_LAUNCHES for phase, _ in rec.evals])
+    regimes = {name: sum(r["regime"] == name for r in seg_steps)
+               for name in REGIMES}
+    substituted = [r["substituted"] for r in reg_steps]
+    sims = [r["metrics"]["sim"] for r in reg_steps]
+    cli_lines = out.getvalue().splitlines()
+    guard = [ln for ln in cli_lines if "disp_overflow" in ln]
+    run_dirs = [os.path.join(dp, "checkpoint")
+                for dp, _, files in os.walk(os.path.join(workdir, "logs"))
+                if "checkpoint" in files]
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if xs else None
+
+    warm = rec.steps[2:]
+    log({"phase": "joint", "volume_shape": MB_SHAPE,
+         "train_shape": TRAIN_SHAPE, "n_classes": TRAIN_CLASSES,
+         "n_labeled": JOINT_N_LABELED, "iterations": len(rec.steps),
+         "seg_steps_by_regime": regimes,
+         "reg_steps_by_substituted_sides": {
+             k: substituted.count(k) for k in (0, 1, 2)},
+         "launches": counts, "launches_expected": want,
+         "launches_per_seg_step": {r: joint_seg_launches(r)
+                                   for r in REGIMES},
+         "launches_per_reg_step": {k: joint_reg_launches(k)
+                                   for k in (0, 1, 2)},
+         "evaluations": [phase for phase, _ in rec.evals],
+         "seg_metrics": {k: [r["metrics"][k] for r in seg_steps]
+                         for k in ("loss", "anatomy", "supervised")},
+         # past the guard's last rung the warp is unclamped and a reg step
+         # reports no disp_overflow (None here)
+         "reg_metrics": {k: [r["metrics"].get(k) for r in reg_steps]
+                         for k in ("loss", "sim", "reg", "anatomy",
+                                   "disp_overflow")},
+         "reg_steps_fused_anatomy": [r["expected"]["matched_warp_fused"] == 1
+                                     for r in reg_steps],
+         "reg_sim_first5_mean": float(np.mean(sims[:5])),
+         "reg_sim_last5_mean": float(np.mean(sims[-5:])),
+         "guard_lines": guard,
+         "first_steps_s": [r["seconds"] for r in rec.steps[:2]],
+         "seg_step_s_median": median([r["seconds"] for r in warm
+                                      if r["phase"] == "seg"]),
+         "seg_step_s_median_by_regime": {
+             name: median([r["seconds"] for r in warm
+                           if r.get("regime") == name]) for name in REGIMES},
+         "reg_step_s_median": median([r["seconds"] for r in warm
+                                      if r["phase"] == "reg"]),
+         "reg_step_s_median_by_substituted_sides": {
+             k: median([r["seconds"] for r in warm
+                        if r.get("substituted") == k]) for k in (0, 1, 2)},
+         "pairs_per_s_in_steps":
+             len(warm) / sum(r["seconds"] for r in warm),
+         "pairs_per_s_with_loading":
+             len(rec.steps) / (rec.last_end - rec.first_start),
+         "peak_memory_by_regime": {
+             name: max([r["peak"] for r in seg_steps
+                        if r["regime"] == name], default=None)
+             for name in REGIMES},
+         "peak_memory_reg_step": max(r["peak"] for r in reg_steps),
+         "peak_memory_per_step": [(r.get("regime") or r["phase"], r["peak"])
+                                  for r in rec.steps],
+         "setup_s": setup_s, "cli_s": total_s,
+         "test_seg_dice_avg": float(seg_dice),
+         "test_reg_dice_avg": float(reg_dice),
+         "test_folding_fraction": float(folding),
+         "checkpoints": [os.path.relpath(d, workdir) for d in run_dirs],
+         "cli_tail": cli_lines[-4:]})
+    if len(seg_steps) != JOINT_ITERATIONS // 2 \
+            or len(reg_steps) != JOINT_ITERATIONS // 2 \
+            or [p for p, _ in rec.evals].count("seg") != 4 \
+            or [p for p, _ in rec.evals].count("reg") != 4:
+        raise AssertionError(f"{len(seg_steps)} seg and {len(reg_steps)} "
+                             f"reg steps, evaluations {rec.evals}")
+    if not all(regimes.values()) or not any(substituted):
+        raise AssertionError(f"a branch did not run: seg regimes {regimes}, "
+                             f"reg substitutions {substituted}")
+    # the matched-label kernels on every step that should take them: the
+    # guard's last rung (the unclamped warp) would turn them off
+    if any(r["launches"]["matched_warp_fused"] != 1 for r in reg_steps) \
+            or any(r["launches"]["matched_warp"] != 1 for r in seg_steps
+                   if r["regime"] == "hard"):
+        raise AssertionError(f"a reg step without the fused matched warp or "
+                             f"a hard seg step without the matched warp: "
+                             f"guard {guard}")
+    for i, r in enumerate(rec.steps):
+        if r["launches"] != r["expected"]:
+            raise AssertionError(f"iteration {i} ({r['phase']}) launched "
+                                 f"{r['launches']}, expected "
+                                 f"{r['expected']}")
+    for phase, got in rec.evals:
+        expected = EVAL_LAUNCHES if phase == "seg" else REG_EVAL_LAUNCHES
+        if got != expected:
+            raise AssertionError(f"a {phase} evaluation launched {got}, "
+                                 f"expected {expected}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    for r in rec.steps:
+        if not np.all(np.isfinite(list(r["metrics"].values()))):
+            raise AssertionError(f"non-finite metrics {r}")
+    if not np.mean(sims[-5:]) < np.mean(sims[:5]):
+        raise AssertionError(f"the reg-phase similarity did not fall: {sims}")
+    if not (np.all(np.isfinite(seg_pc)) and np.all(np.isfinite(reg_pc))
+            and np.isfinite(folding) and seg_pc.shape == reg_pc.shape
+            == (TRAIN_CLASSES - 1,)):
+        raise AssertionError(f"bad test result {seg_pc} {reg_pc} {folding}")
+    if len(run_dirs) != 1:
+        raise AssertionError(f"expected one checkpoint, found {run_dirs}")
+
+    # one joint step of each kind by hand, through the kernels and on the
+    # plain versions (gradients only: the optimizers do not move and
+    # BatchNorm's statistics are put back), on two states: the nets as the
+    # CLI's seeded draw makes them, and the trained nets of its checkpoint
+    config = train_deepatlas_torch.build_config(
+        train_deepatlas_torch.parse_args(argv))
+    with contextlib.redirect_stdout(io.StringIO()):
+        exp = deepatlas.DeepAtlasExperiment(config)
+    exp.setup_random_seed()
+    exp.setup_model()
+    def make_seg(dtype):
+        return get_network("UNet_light")(
+            in_channel=1, n_classes=TRAIN_CLASSES, bias=True, BN=True,
+            dtype=dtype).cuda()
+
+    def make_reg(dtype):
+        return get_network("voxel_morph_cvpr")(
+            max_disp=REG_MAX_DISP, dtype=dtype).cuda()
+
+    def loaded(model, state):
+        model.load_state_dict(state)
+        return model
+
+    ckpt = load_checkpoint(run_dirs[0], map_location="cuda")
+    trained = [loaded(make_seg(torch.bfloat16), ckpt["seg_model"]),
+               loaded(make_reg(torch.bfloat16), ckpt["reg_model"])]
+    initial = [loaded(make_seg(torch.float32), exp.seg_model.state_dict()),
+               loaded(make_reg(torch.float32), exp.reg_model.state_dict())]
+    mb = os.path.join(workdir, "mindboggle")
+    sample_m, sample_f = get_reg_dataset("MindBoggle")(
+        os.path.join(mb, "MMRR-21-flip.txt"), mb, pre_transform=Compose(
+            [VolumeToArray(), CropVolume(MB_CROP)]))[0]
+    images = [torch.from_numpy(np.ascontiguousarray(s["image"])[None]).cuda()
+              for s in (sample_m, sample_f)]
+    labels = [torch.from_numpy(np.ascontiguousarray(
+        s["segmentation"])[None]).cuda().long() for s in (sample_m, sample_f)]
+
+    # the seeded draw's untrained field on this pair: the share of voxels
+    # past the clamp at the corpus's intensity and at three times it (the
+    # registration corpus's 0.3; the images are linear in the intensity)
+    with torch.no_grad():
+        untrained_overflow = {
+            f"x{k}": float(displacement_overflow(exp.reg_model.cuda(
+            ).deformation(images[0] * k, images[1] * k)[1], REG_MAX_DISP))
+            for k in (1, 3)}
+
+    def tensors(am, af):
+        return (*images, *labels, torch.tensor([am]), torch.tensor([af]))
+
+    def joint_steps(dtype):
+        seg_step = make_joint_seg_step(
+            get_loss_function("dice")(n_class=TRAIN_CLASSES,
+                                      weight_type="Uniform", no_bg=False,
+                                      softmax=True, eps=1e-6),
+            3.0, 1.0, TRAIN_CLASSES, warp_fn=functools.partial(
+                grid_sample, max_disp=REG_MAX_DISP, grad="values"),
+            anatomy_dtype=dtype, hard_fused=True, max_disp=REG_MAX_DISP)
+        reg_step = make_joint_reg_step(
+            get_loss_function("lncc")(filter_size=9),
+            get_loss_function("bendingEnergy")(), 1.0, 3.0, TRAIN_CLASSES,
+            warp_fn=functools.partial(grid_sample, max_disp=REG_MAX_DISP),
+            anatomy_dtype=dtype, max_disp=REG_MAX_DISP, fused_anatomy=True)
+        return seg_step, reg_step
+
+    def agreement(kind, dtype, g_k, g_p, skip=()):
+        """The check's readings, its limits and whether they hold: the seg
+        step in the mean, the reg step in the mean and at the worst
+        entry."""
+        worst_max, worst_mean = grad_agreement(g_k, g_p, skip)
+        tol = JOINT_GRAD_TOL[str(dtype).split(".")[-1]]
+        limits = {"mean": tol[f"{kind}_mean"]}
+        if kind == "reg":
+            limits["max"] = tol["reg_max"]
+        readings = {"max": worst_max, "mean": worst_mean}
+        return {"worst_max_rel": worst_max, "worst_mean_rel": worst_mean,
+                "rel_tol": limits,
+                "grads_ok": all(readings[k][0] <= v
+                                for k, v in limits.items())}
+
+    def metric_errors(m_k, m_p):
+        errs = {k: abs(m_k[k] - m_p[k]) for k in m_k}
+        return {"metrics_kernels": m_k, "metrics_plain": m_p,
+                "metrics_abs_err": errs, "metric_tol": STEP_METRIC_TOL,
+                "metrics_ok": max(errs.values()) <= STEP_METRIC_TOL}
+
+    checks, splits = {}, {}
+    for state_name, (seg_model, reg_model), dtype in (
+            ("initial_float32", initial, torch.float32),
+            ("trained_bfloat16", trained, torch.bfloat16)):
+        seg_step, reg_step = joint_steps(dtype)
+        seg_state = TrainState(seg_model, torch.optim.SGD(
+            seg_model.parameters(), lr=0.0))
+        reg_state = TrainState(reg_model, torch.optim.SGD(
+            reg_model.parameters(), lr=0.0))
+        # a conv or deconv bias in front of a BatchNorm: noise only
+        skip = {f"{name}.bias" for name, mod in seg_model.named_modules()
+                if getattr(mod, "bn", None) is not None}
+        profile = dtype == torch.bfloat16
+        for name in REGIMES:
+            am = bool(REGIMES.index(name) // 2)
+            af = bool(REGIMES.index(name) % 2)
+            args = tensors(am, af)
+            m_k, g_k = step_gradients_of(seg_step, seg_state, reg_state, args)
+            _, g_k2 = step_gradients_of(seg_step, seg_state, reg_state, args)
+            with plain_math():
+                m_p, g_p = step_gradients_of(seg_step, seg_state, reg_state,
+                                             args)
+            rerun_max, rerun_mean = grad_agreement(g_k2, g_k, skip)
+            checks[f"{state_name}_seg_{name}"] = dict(
+                metric_errors(m_k, m_p),
+                **agreement("seg", dtype, g_k, g_p, skip),
+                rerun_worst_max_rel=rerun_max,
+                rerun_worst_mean_rel=rerun_mean)
+            if profile:
+                splits[f"seg_{name}"] = profiled(lambda: step_gradients_of(
+                    seg_step, seg_state, reg_state, args))
+            del g_k, g_k2, g_p
+        for substituted in (0, 1):
+            args = tensors(True, not substituted)
+            m_k, g_k = step_gradients_of(reg_step, reg_state, seg_state, args)
+            with plain_math():
+                m_p, g_p = step_gradients_of(reg_step, reg_state, seg_state,
+                                             args)
+            checks[f"{state_name}_reg_substituted_{substituted}"] = dict(
+                metric_errors(m_k, m_p), **agreement("reg", dtype, g_k, g_p))
+            if profile:
+                splits[f"reg_substituted_{substituted}"] = profiled(
+                    lambda: step_gradients_of(reg_step, reg_state, seg_state,
+                                              args))
+            del g_k, g_p
+        del seg_state, reg_state, seg_model, reg_model
+        torch.cuda.empty_cache()
+    log({"phase": "joint_check", "gradients_vs_plain": checks,
+         "states": "initial_float32: the CLI's seeded draw of both nets, "
+                   "every tensor float32; trained_bfloat16: its "
+                   "checkpoint, as the CLI runs",
+         "untrained_disp_overflow": untrained_overflow,
+         "g_atomics": "rerun_* : the same seg step twice through the "
+                      "kernels (G adds with float atomics; H, I, J do not)",
+         "step_split": splits})
+    bad = [k for k, v in checks.items()
+           if not (v["grads_ok"] and v["metrics_ok"])]
+    if bad:
+        raise AssertionError(f"joint steps disagree: "
+                             f"{ {k: checks[k] for k in bad} }")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1494,13 +2327,18 @@ def main(argv=None):
         summary = check_kernels(args.seed)
         check_upsample(args.seed)
     check_warp_kernels(summary, args.seed)
+    apart = check_anatomy_kernels(summary, args.seed)
 
     launches = {}
     for path, run in (("serving", run_main_path), ("training", run_train_path),
-                      ("registration", run_reg_path)):
+                      ("registration", run_reg_path),
+                      ("joint", run_joint_path)):
         with tempfile.TemporaryDirectory() as workdir:
             launches[path] = run(args.seed, workdir)
 
+    step_tables = (STEP_LAUNCHES, EVAL_LAUNCHES, REG_STEP_LAUNCHES,
+                   REG_EVAL_LAUNCHES, joint_reg_launches(0),
+                   *[joint_seg_launches(r) for r in REGIMES])
     kernels = []
     times = ("ms", "plain_ms", "bound_ms", "library_ms")
     for name, s in summary.items():
@@ -1519,32 +2357,32 @@ def main(argv=None):
         for path in PATHS:
             entry[path] = dict({k: s[path][k] for k in times},
                                launches=launches[path][name])
-        on_a_path = any(per[name] for per in (
-            STEP_LAUNCHES, EVAL_LAUNCHES, REG_STEP_LAUNCHES,
-            REG_EVAL_LAUNCHES))
+        on_a_path = any(per[name] for per in step_tables)
         if on_a_path and entry["launches"] == 0:
             raise AssertionError(f"no main path launched {name}")
         if not on_a_path:
-            # held against its plain version above and launched by the
-            # adjoint check, but a kernel of no main path yet
+            # held against its plain version and launched by the anatomy
+            # gradient check in the kernels phase, counted apart: the joint
+            # training never differentiates the value-only matched warp
             entry["on_a_main_path"] = False
+            entry["launches_outside_main_paths"] = apart[name]
         kernels.append(entry)
     print(nvidia_smi(), flush=True)
     log({"kernels": kernels,
          "note": "ms, plain_ms, library_ms and bound_ms are totals over one "
-                 "tile batch (4 x 128^3) of the serving path, one training "
-                 "step of UNet_light (168x200x168, 32 classes) and one "
-                 "registration step of VoxelMorph (168x200x168), split "
-                 "under 'serving', 'training' and 'registration': bfloat16 "
-                 "for the convolutions, float32 with one channel on the "
-                 "smooth field for the warp kernels, one call each; "
-                 "launches are the three main paths' runs, read when each "
-                 "CLI returns (no main path launches the splat yet: it is "
-                 "the warp's gradient in the moving image, which the "
-                 "registration step does not ask for; it is held against "
-                 "its plain version in the kernels phase and launched by "
-                 "the adjoint identity check, counted apart under the reg "
-                 "phase's adjoint_check_launches); max_abs_err is the largest over every shape "
+                 "unit of each main path, split under its name: one tile "
+                 "batch (4 x 128^3) of the serving path, one training step "
+                 "of UNet_light (168x200x168, 32 classes), one registration "
+                 "step of VoxelMorph (168x200x168) and, for 'joint', one "
+                 "reg step without label substitution plus four seg steps, "
+                 "one in each label regime (soft, f_hard, m_hard, hard): "
+                 "bfloat16 for the convolutions, the smooth field for the "
+                 "warp and anatomy kernels (float32 with one channel for "
+                 "the image warps and the splat of ones, 32 channels for "
+                 "the anatomy warps and splats); matched_grid_grad, which "
+                 "no main path launches, gives its time per call. launches "
+                 "are the four main paths' runs, read when each CLI "
+                 "returns; max_abs_err is the largest over every shape "
                  "and type; library_ms of warp_grid_grad and of "
                  "splat_trilinear is the same F.grid_sample backward call, "
                  "which computes both"})

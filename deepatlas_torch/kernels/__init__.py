@@ -8,6 +8,10 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .anatomy import (binned_sum, hard_anatomy_dice, matched_grid_grad,
+                      matched_grid_grad_plain, matched_warp,
+                      matched_warp_fused, matched_warp_fused_plain,
+                      matched_warp_plain)
 from .conv3d import (conv3d_k3, conv3d_k3_plain, conv3d_k3_wgrad,
                      conv3d_k3_wgrad_plain, conv3d_point, conv3d_point_plain)
 from .deconv3d import deconv2x, deconv2x_plain, nearest_up2x
@@ -16,8 +20,10 @@ from .warp import (grid_sample, splat_trilinear, splat_trilinear_plain,
                    warp_trilinear_plain)
 from .warp_lncc import warp_lncc_loss
 
-# wrapper -> its plain version, in the order a training step of the U-Net
-# and then one of VoxelMorph first launch them
+# wrapper -> its plain version, in the order a training step of the U-Net,
+# one of VoxelMorph and then the joint training first launch them
+# (matched_grid_grad is the backward of matched_warp, which the joint
+# training never differentiates)
 KERNELS = {
     "conv3d_k3": (conv3d_k3, conv3d_k3_plain),
     "deconv2x": (deconv2x, deconv2x_plain),
@@ -26,6 +32,9 @@ KERNELS = {
     "warp_trilinear": (warp_trilinear, warp_trilinear_plain),
     "warp_grid_grad": (warp_grid_grad, warp_grid_grad_plain),
     "splat_trilinear": (splat_trilinear, splat_trilinear_plain),
+    "matched_warp_fused": (matched_warp_fused, matched_warp_fused_plain),
+    "matched_warp": (matched_warp, matched_warp_plain),
+    "matched_grid_grad": (matched_grid_grad, matched_grid_grad_plain),
 }
 
 
@@ -39,9 +48,12 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "conv3d_k3", "conv3d_k3_plain", "conv3d_k3_wgrad",
-           "conv3d_k3_wgrad_plain", "conv3d_point", "conv3d_point_plain",
-           "deconv2x", "deconv2x_plain", "grid_sample", "launch_counts",
-           "nearest_up2x", "reset_launch_counts", "splat_trilinear", "splat_trilinear_plain",
+__all__ = ["KERNELS", "binned_sum", "conv3d_k3", "conv3d_k3_plain",
+           "conv3d_k3_wgrad", "conv3d_k3_wgrad_plain", "conv3d_point",
+           "conv3d_point_plain", "deconv2x", "deconv2x_plain", "grid_sample",
+           "hard_anatomy_dice", "launch_counts", "matched_grid_grad",
+           "matched_grid_grad_plain", "matched_warp", "matched_warp_fused",
+           "matched_warp_fused_plain", "matched_warp_plain", "nearest_up2x",
+           "reset_launch_counts", "splat_trilinear", "splat_trilinear_plain",
            "warp_grid_grad", "warp_grid_grad_plain", "warp_lncc_loss",
            "warp_trilinear", "warp_trilinear_plain"]

@@ -99,15 +99,23 @@ class VoxelMorphCVPR2018(nn.Module):
         d5 = self.dec[4](d4, train)
         return self.head(torch.cat([d5, e1], dim=-1), train).float()
 
-    def forward(self, source: torch.Tensor, target: torch.Tensor,
-                train: bool = False):
-        """Register ``source`` onto ``target``, both ``(B, D, H, W, C)``
-        (C normally 1).  Returns ``(disp_field, warped_source,
-        deform_field)``."""
+    def deformation(self, source: torch.Tensor, target: torch.Tensor,
+                    train: bool = False):
+        """``(disp_field, deform_field)`` without the warp: what a caller
+        that samples other volumes than ``source`` needs (the joint
+        training's seg phase)."""
         disp = self.trunk(source, target, train)
         if self.flow_scale != 1.0:
             disp = disp * self.flow_scale
         deform = disp + identity_grid_batch(source.shape, dtype=disp.dtype,
                                             device=disp.device)
+        return disp, deform
+
+    def forward(self, source: torch.Tensor, target: torch.Tensor,
+                train: bool = False):
+        """Register ``source`` onto ``target``, both ``(B, D, H, W, C)``
+        (C normally 1).  Returns ``(disp_field, warped_source,
+        deform_field)``."""
+        disp, deform = self.deformation(source, target, train)
         warped = grid_sample(source.float(), deform, max_disp=self.max_disp)
         return disp, warped, deform

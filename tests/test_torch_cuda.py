@@ -343,3 +343,200 @@ def test_nearest_up2x_on_card(cuda, shape, c, dtype):
     assert x.grad.dtype == dtype
     err = (x.grad.float() - ref).abs().max().item()
     assert err <= tol * ref.abs().max().item()
+
+
+def _anatomy_inputs(cuda, shape, n_class, amplitude, out_shape=None):
+    """Moving and fixed int32 labels, a grid of random displacements of up
+    to ``amplitude`` voxels (some samples leave the volume) or, with
+    ``out_shape``, of random points in and past the volume, and a
+    cotangent at the grid's points."""
+    from deepatlas_torch.ops import identity_grid_batch, normalize_displacement
+
+    rng = np.random.RandomState(230)
+    lab_m = torch.from_numpy(rng.randint(0, n_class, shape).astype(
+        np.int32)).to(cuda)
+    if out_shape is None:
+        disp = torch.from_numpy(
+            (rng.rand(*shape, 3) * 2 - 1).astype(np.float32)) * amplitude
+        grid = (normalize_displacement(disp)
+                + identity_grid_batch(shape)).to(cuda).contiguous()
+    else:
+        grid = torch.from_numpy((rng.rand(shape[0], *out_shape, 3) * 2.4
+                                 - 1.2).astype(np.float32)).to(cuda)
+    lab_f = torch.from_numpy(rng.randint(0, n_class, grid.shape[:4]).astype(
+        np.int32)).to(cuda)
+    ct = torch.from_numpy(rng.randn(*grid.shape[:4]).astype(
+        np.float32)).to(cuda)
+    return lab_m, lab_f, grid, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_class,amplitude,out_shape", [
+    ((1, 13, 17, 11), 32, 2.5, None), ((2, 9, 8, 35), 3, 6.0, None),
+    ((1, 4, 5, 300), 5, 1.0, None), ((2, 7, 6, 5), 4, 0.0, (3, 4, 9))],
+    ids=["smooth", "batch_border", "wide", "other_output_shape"])
+def test_matched_kernels_match_plain_on_card(cuda, shape, n_class, amplitude,
+                                             out_shape):
+    """Kernels H, I and J at odd sizes, batch 2, samples past every border
+    and a grid of another shape than the volume, against their plain
+    versions: ``m`` to 1e-6 absolute (it lies in [0, 1]; both sides add the
+    same 8 products), the derivative planes and J's cotangent to 1e-5 of
+    their largest entry (another order of additions).  One writer per
+    output: a rerun is bit-identical, and J is ``ct`` times I's planes bit
+    for bit."""
+    from deepatlas_torch import kernels
+
+    lab_m, lab_f, grid, ct = _anatomy_inputs(cuda, shape, n_class, amplitude,
+                                             out_shape)
+    args = (lab_m, lab_f, grid)
+    before = kernels.launch_counts()
+    m = kernels.matched_warp(*args)
+    m_fused, planes = kernels.matched_warp_fused(*args)
+    dgrid = kernels.matched_grid_grad(*args, ct)
+    again = (kernels.matched_warp(*args), *kernels.matched_warp_fused(*args),
+             kernels.matched_grid_grad(*args, ct))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("matched_warp", "matched_warp_fused", "matched_grid_grad"):
+        assert after[name] == before[name] + 2
+    ref_m, ref_planes = kernels.matched_warp_fused_plain(*args)
+    ref_dgrid = kernels.matched_grid_grad_plain(*args, ct)
+    assert kernels.launch_counts() == after         # plain launches nothing
+    assert m.shape == grid.shape[:4] and planes.shape == grid.shape
+    assert m.dtype == planes.dtype == dgrid.dtype == torch.float32
+    for a, b in zip((m, m_fused, planes, dgrid), again):
+        assert torch.equal(a, b)
+    assert torch.equal(m, m_fused)
+    assert torch.equal(dgrid, ct[..., None] * planes)
+    assert (m - ref_m).abs().max().item() <= 1e-6
+    for a, b in ((planes, ref_planes), (dgrid, ref_dgrid)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_grad", [False, True],
+                         ids=["matched_grid_grad", "fused"])
+def test_hard_anatomy_dice_on_card(cuda, fused_grad):
+    """The anatomy dice and its deformation gradient on the card against
+    the same Functions on the plain math: value to 1e-5 (per-class sums of
+    float32 atomics in any order), gradient to 1e-4 of its largest entry;
+    the launches that ``fused_grad`` selects; no gradient past the clamp."""
+    from deepatlas_torch import kernels
+
+    lab_m, lab_f, grid0, _ = _anatomy_inputs(cuda, (2, 12, 10, 37), 6, 6.0)
+
+    def run():
+        g = grid0.clone().requires_grad_(True)
+        loss = kernels.hard_anatomy_dice(lab_m, lab_f, g, 6, max_disp=3,
+                                         fused_grad=fused_grad)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), g.grad
+
+    before = kernels.launch_counts()
+    got = run()
+    after = kernels.launch_counts()
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    matched = {"matched_warp_fused": 1} if fused_grad else {
+        "matched_warp": 1, "matched_grid_grad": 1}
+    assert launched == dict(matched, splat_trilinear=1, warp_grid_grad=1)
+    with plain_math():
+        ref = run()
+    assert abs(got[0] - ref[0]) <= 1e-5
+    assert (got[1] - ref[1]).abs().max().item() \
+        <= 1e-4 * ref[1].abs().max().item()
+    assert (got[1] == 0).any() and (got[1] != 0).any()
+
+
+@pytest.mark.cuda
+def test_matched_wrappers_raise_on_mixed_devices(cuda):
+    from deepatlas_torch import kernels
+
+    lab = torch.zeros(1, 4, 4, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="operands on"):
+        kernels.matched_warp(lab, lab, torch.zeros(1, 4, 4, 4, 3))
+
+
+# (moving labelled, fixed labelled) -> the anatomy kernels a joint seg step
+# launches in that regime with hard_fused (C = 32 in the joint recipe; the
+# warps here carry 4 one-hot or probability channels)
+SEG_REGIME_LAUNCHES = {
+    (False, False): {"warp_trilinear": 1, "splat_trilinear": 1},
+    (False, True): {"splat_trilinear": 1},
+    (True, False): {"warp_trilinear": 1},
+    (True, True): {"matched_warp": 1, "splat_trilinear": 1}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", sorted(SEG_REGIME_LAUNCHES),
+                         ids=["soft", "f_hard", "m_hard", "hard"])
+def test_joint_seg_step_launches_per_regime_on_card(cuda, flags):
+    """One joint seg step per label regime on small nets: the anatomy
+    launches the regime's branch implies (the frozen reg net's forward is
+    convolutions only), the same loss and gradients as the soft branch on
+    the card (1e-4 of a tensor's largest entry: float32 nets, atomics in any
+    order), and the frozen reg net untouched."""
+    import functools
+
+    from deepatlas_torch import kernels
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.models import UNetTemplate, VoxelMorphCVPR2018
+    from deepatlas_torch.train import (TrainState, make_joint_seg_step,
+                                       make_optimizer)
+
+    n_class, shape = 4, (1, 12, 12, 16)
+    rng = np.random.RandomState(230)
+    torch.manual_seed(0)
+    seg = UNetTemplate(encoders=((4, 8), (8, 8, 16)),
+                       decoders=((16, 8, 8),), act="LeakyReLU", in_channel=1,
+                       n_classes=n_class, bias=True, BN=True).to(cuda)
+    reg = VoxelMorphCVPR2018(enc_filters=(4, 8, 8, 8, 8),
+                             dec_filters=(8, 8, 8, 4, 4)).to(cuda)
+    init = {k: v.clone() for k, v in seg.state_dict().items()}
+    reg_init = {k: v.clone() for k, v in reg.state_dict().items()}
+    images = [torch.from_numpy(rng.rand(*shape, 1).astype(np.float32)).to(
+        cuda) for _ in range(2)]
+    labels = [torch.from_numpy(rng.randint(0, n_class, shape)).to(cuda)
+              for _ in range(2)]
+    warp_fn = functools.partial(kernels.grid_sample, max_disp=2,
+                                grad="values")
+    sup = get_loss_function("dice")(n_class=n_class, weight_type="Uniform",
+                                    no_bg=False, softmax=True, eps=1e-6)
+
+    def run(hard_fused):
+        seg.load_state_dict(init)
+        state = TrainState(seg, make_optimizer(seg, 0.0))
+        step = make_joint_seg_step(sup, 3.0, 1.0, n_class, warp_fn=warp_fn,
+                                   hard_fused=hard_fused, max_disp=2)
+        before = kernels.launch_counts()
+        _, metrics = step(state, TrainState(reg, make_optimizer(reg, 0.0)),
+                          *images, *labels, torch.tensor([flags[0]]),
+                          torch.tensor([flags[1]]))
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k] and k not in (
+                        "conv3d_k3", "conv3d_k3_wgrad", "conv3d_point",
+                        "deconv2x")}
+        grads = {n: p.grad.clone() for n, p in seg.named_parameters()}
+        return {k: float(v) for k, v in metrics.items()}, grads, launched
+
+    metrics, grads, launched = run(True)
+    assert launched == SEG_REGIME_LAUNCHES[flags]
+    soft_metrics, soft_grads, _ = run(False)
+    for key in metrics:
+        assert abs(metrics[key] - soft_metrics[key]) <= 1e-5, key
+    # a conv bias in front of a BatchNorm has no gradient (the batch mean
+    # removes it): rounding noise only
+    noise_only = {f"{name}.bias" for name, mod in seg.named_modules()
+                  if getattr(mod, "bn", None) is not None}
+    for name, g in grads.items():
+        ref = soft_grads[name]
+        if name not in noise_only:
+            assert (g - ref).abs().max().item() \
+                <= 1e-4 * ref.abs().max().item(), name
+    for k, v in reg.state_dict().items():
+        assert torch.equal(v, reg_init[k]), k
+    assert all(p.grad is None for p in reg.parameters())
