@@ -34,7 +34,11 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      twice and required bit-identical, with ``F.grid_sample`` of the
      32-channel one-hot as the library yardstick; then the anatomy dice's
      deformation gradient three ways (fused, value kernel + grid cotangent,
-     plain versions), counted apart from the main paths.
+     plain versions), counted apart from the main paths.  Block conv: the
+     multi-plane k3 forward (kernel K, on no model path) against its plain
+     version and against the k3 conv kernel at UNet_light's 13 forward k3
+     shapes at 168x200x168, at p_blk 2, 4 and 8 in both types, and at one
+     odd small shape whose depths are no multiple of p_blk.
   4. main    -- the segmentation serving path: a synthetic OAI-ZIB corpus
      (160x384x384 volumes, labels 0..4, from ``--seed``), UNet_light with
      seeded weights and BatchNorm statistics saved as a checkpoint, and
@@ -99,6 +103,13 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      within ``STEP_METRIC_TOL``; on the trained state each step is
      profiled.  The seeded draw's untrained field is also measured on the
      first pair at the corpus's intensity and at three times it.
+  8. convs   -- the conv tools: ``tools/bench_packed_conv_torch.py`` (the
+     per-shape roofline of kernels A, B and C on UNet_light's forward at
+     168x200x168) and ``tools/bench_block_conv_torch.py`` (kernel K at p_blk
+     2, 4 and 8 against kernel A, cuDNN beside), ``--iters 3`` each, with
+     their rows logged; each kernel must launch exactly as often as the
+     tool called it, K's launches are the ones its kernels entry counts
+     apart.  Run after the kernels phase, before the main paths.
 
 Then the ``nvidia-smi`` line, the kernels summary line and, last,
 ``{"ok": true, "device": {...}}``.  Run with no arguments:
@@ -146,6 +157,8 @@ KERNEL_INFO = {
                      "deepatlas_tpu/pallas/anatomy.py:46"),
     "matched_grid_grad": ("deepatlas_torch/kernels/csrc/anatomy.cu",
                           "deepatlas_tpu/pallas/anatomy.py:213"),
+    "conv3d_k3_block": ("deepatlas_torch/kernels/csrc/conv3d_block.cu",
+                        "deepatlas_tpu/pallas/conv3d.py:273"),
 }
 PATHS = ("serving", "training", "registration", "joint")
 
@@ -1029,6 +1042,174 @@ def check_anatomy_kernels(summary, seed):
     if not err <= 1e-4:
         raise AssertionError(f"binned_sum against one lane: {err}")
     return apart
+
+
+# kernel K at the block-conv microbench's p_blk values on UNet_light's
+# forward shapes; the odd shape's depths are no multiple of the p_blk values
+# beside them (the tail block)
+BLOCK_P_BLKS = (2, 4, 8)
+BLOCK_DEFAULT_P_BLK = 4          # conv3d_k3_block's default
+BLOCK_TAIL = {"hw": (13, 37), "cin": 24, "cout": 40, "depths": (7, 10, 12),
+              "p_blks": (2, 3, 4)}
+# the convs phase runs each tool with this many timed launches per shape
+CONV_TOOL_ITERS = 3
+
+
+def forward_k3_shapes():
+    """``{(dhw, cin, cout): calls per forward}`` of UNet_light's k3 convs
+    on one 168x200x168 volume: 13 shapes, 14 calls."""
+    return {(size, cin, cout): n for (_, kernel, _, _, size, cin, cout), n
+            in unet_cases("training", 1, TRAIN_SHAPE, TRAIN_CLASSES,
+                          False).items() if kernel == "conv3d_k3"}
+
+
+def check_block_kernel(seed):
+    """Phase 3, kernel K (``conv3d_k3_block``): against its plain version
+    and against kernel A (the same function) at every k3 shape of
+    UNet_light's forward at 168x200x168, at p_blk 2, 4 and 8, in float32
+    and bfloat16, under A's limits (``TOL``); then at one odd small shape
+    whose depths 7, 10 and 12 are no multiple of the p_blk values 2, 3 and 4.
+    The plain version is timed in bfloat16 at the forward's shapes (K's own
+    times come from the convs phase).  Returns ``{"max_abs_err",
+    "max_abs_diff_vs_a", "plain_ms": {(dhw, cin, cout): ms}}``."""
+    import torch
+
+    from deepatlas_torch.kernels import (conv3d_k3, conv3d_k3_block,
+                                         conv3d_k3_block_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    cases = [((1,) + size, cin, cout, BLOCK_P_BLKS, n)
+             for (size, cin, cout), n in forward_k3_shapes().items()]
+    cases += [((1, d) + BLOCK_TAIL["hw"], BLOCK_TAIL["cin"],
+               BLOCK_TAIL["cout"], BLOCK_TAIL["p_blks"], 0)
+              for d in BLOCK_TAIL["depths"]]
+    out = {"max_abs_err": 0.0, "max_abs_diff_vs_a": 0.0, "plain_ms": {}}
+    for shape, cin, cout, p_blks, n in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            x = (torch.rand(shape + (cin,), generator=gen, device="cuda") * 2
+                 - 1).to(dtype)
+            w = torch.randn((3, 3, 3, cin, cout), generator=gen,
+                            device="cuda") / np.sqrt(27 * cin)
+            ref = conv3d_k3_block_plain(x, w).float()
+            a = conv3d_k3(x, w).float()
+            scale = ref.abs().max().item()
+            errs, diffs = {}, {}
+            for p in p_blks:
+                got = conv3d_k3_block(x, w, p_blk=p)
+                torch.cuda.synchronize()
+                if got.shape != shape + (cout,) or got.dtype != dtype:
+                    raise AssertionError(
+                        f"conv3d_k3_block p_blk={p} {shape}: gives "
+                        f"{tuple(got.shape)} {got.dtype}")
+                got = got.float()
+                errs[p] = (got - ref).abs().max().item()
+                diffs[p] = (got - a).abs().max().item()
+                del got
+            limit = TOL[dname] * scale
+            ok = all(np.isfinite(e) and e <= limit
+                     for e in (*errs.values(), *diffs.values()))
+            rec = {"phase": "kernels", "path": "block_conv",
+                   "kernel": "conv3d_k3_block", "dtype": dname,
+                   "x": list(x.shape), "cin": cin, "cout": cout,
+                   "calls_per_forward": n, "max_abs_err_vs_plain": errs,
+                   "max_abs_diff_vs_conv3d_k3": diffs,
+                   "max_abs_ref": scale, "rel_tol": TOL[dname], "ok": ok}
+            if dname == "bfloat16" and n:
+                rec["plain_ms"] = out["plain_ms"][(shape[1:], cin, cout)] = \
+                    cuda_ms(lambda: conv3d_k3_block_plain(x, w), reps=1,
+                            warmup=0)
+            log(rec)
+            if not ok:
+                raise AssertionError(
+                    f"conv3d_k3_block {dname} {tuple(x.shape)} -> {cout}: "
+                    f"vs plain {errs}, vs conv3d_k3 {diffs}, limit {limit}")
+            out["max_abs_err"] = max(out["max_abs_err"], *errs.values())
+            out["max_abs_diff_vs_a"] = max(out["max_abs_diff_vs_a"],
+                                           *diffs.values())
+            del x, w, ref, a
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_conv_tools():
+    """Phase 8 (convs): ``tools/bench_packed_conv_torch.py`` (the per-shape
+    roofline of kernels A, B, C on UNet_light's forward) and
+    ``tools/bench_block_conv_torch.py`` (K at p_blk 2, 4 and 8 against A,
+    with cuDNN's time beside) with ``--iters 3``, each with the launch
+    counts set to 0 just before it and read just after: every kernel must
+    have launched exactly as often as the tool called its wrapper, and the
+    tools' census must agree with ``forward_k3_shapes``.  Returns each
+    tool's result and launches."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import bench_block_conv_torch
+    import bench_packed_conv_torch
+
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+
+    results = {}
+    for name, tool in (("roofline", bench_packed_conv_torch),
+                       ("block", bench_block_conv_torch)):
+        t0 = time.perf_counter()
+        table = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(table):
+            res = tool.main(["--iters", str(CONV_TOOL_ITERS)])
+        counts = launch_counts()
+        seconds = time.perf_counter() - t0
+        want = dict(NO_LAUNCHES, **res["calls"])
+        log({"phase": "convs", "tool": tool.__name__ + ".py",
+             "iters": CONV_TOOL_ITERS, "seconds": seconds,
+             "table": table.getvalue().splitlines(), "rows": res["rows"],
+             "calls": res["calls"],
+             "launches": {k: v for k, v in counts.items() if v}})
+        if counts != want:
+            raise AssertionError(f"{tool.__name__}: launches {counts}, "
+                                 f"wrapper calls {res['calls']}")
+        results[name] = dict(res, launches=counts)
+    census = {(tuple(r["x"][1:4]), r["cin"], r["cout"]): r["n"]
+              for r in results["block"]["rows"]}
+    if census != forward_k3_shapes():
+        raise AssertionError(f"the tools' census {census} differs from "
+                             f"UNet_light's plan {forward_k3_shapes()}")
+    return results
+
+
+def block_entry(block, convs):
+    """The ``kernels`` line's entry for K: totals over the 14 forward convs
+    at the wrapper's default p_blk (and per p_blk, per shape), the plain
+    version and cuDNN on the same calls, the bound; on no main path, its
+    launches are the block-conv microbench's."""
+    src, replaces = KERNEL_INFO["conv3d_k3_block"]
+    rows, totals = convs["block"]["rows"], convs["block"]["totals"]
+    flops = nbytes = bound = 0.0
+    for (size, cin, cout), n in forward_k3_shapes().items():
+        f, b = work("conv3d_k3", int(np.prod(size)), cin, cout, "bfloat16")
+        flops, nbytes = flops + n * f, nbytes + n * b
+        bound += n * bound_ms("conv3d_k3", int(np.prod(size)), cin, cout,
+                              "bfloat16")[0]
+    return {
+        "name": "conv3d_k3_block", "route": "cuda", "source": src,
+        "replaces": replaces, "launches": 0,
+        "max_abs_err": block["max_abs_err"],
+        "ms": totals["k_ms"][BLOCK_DEFAULT_P_BLK],
+        "plain_ms": sum(n * block["plain_ms"][key]
+                        for key, n in forward_k3_shapes().items()),
+        "bound_ms": bound,
+        "bound_by": "operations" if flops / PEAK_FLOPS["bfloat16"]
+        >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "library_ms": totals["library_ms"],
+        "on_a_main_path": False,
+        "launches_outside_main_paths":
+            convs["block"]["launches"]["conv3d_k3_block"],
+        "max_abs_diff_vs_conv3d_k3": block["max_abs_diff_vs_a"],
+        "conv3d_k3_ms": totals["a_ms"],
+        "p_blk": {str(p): {"ms": totals["k_ms"][p],
+                           "per_shape_ms": [
+                               {"x": r["x"], "cin": r["cin"],
+                                "cout": r["cout"], "calls_per_forward": r["n"],
+                                "ms": r["k_ms"][p]} for r in rows]}
+                  for p in BLOCK_P_BLKS}}
 
 
 def write_corpus(root, seed):
@@ -2326,8 +2507,10 @@ def main(argv=None):
     with torch.no_grad():
         summary = check_kernels(args.seed)
         check_upsample(args.seed)
+        block = check_block_kernel(args.seed)
     check_warp_kernels(summary, args.seed)
     apart = check_anatomy_kernels(summary, args.seed)
+    convs = run_conv_tools()
 
     launches = {}
     for path, run in (("serving", run_main_path), ("training", run_train_path),
@@ -2342,6 +2525,8 @@ def main(argv=None):
     kernels = []
     times = ("ms", "plain_ms", "bound_ms", "library_ms")
     for name, s in summary.items():
+        if name == "conv3d_k3_block":
+            continue
         src, replaces = KERNEL_INFO[name]
         flops = sum(s[path]["flops"] for path in PATHS)
         nbytes = sum(s[path]["bytes"] for path in PATHS)
@@ -2367,6 +2552,7 @@ def main(argv=None):
             entry["on_a_main_path"] = False
             entry["launches_outside_main_paths"] = apart[name]
         kernels.append(entry)
+    kernels.append(block_entry(block, convs))
     print(nvidia_smi(), flush=True)
     log({"kernels": kernels,
          "note": "ms, plain_ms, library_ms and bound_ms are totals over one "
@@ -2385,7 +2571,12 @@ def main(argv=None):
                  "returns; max_abs_err is the largest over every shape "
                  "and type; library_ms of warp_grid_grad and of "
                  "splat_trilinear is the same F.grid_sample backward call, "
-                 "which computes both"})
+                 "which computes both. conv3d_k3_block, on no main path, "
+                 "gives its totals over the 14 forward k3 convs of "
+                 "UNet_light at 168x200x168 in bfloat16 (ms at its default "
+                 "p_blk 4, and per p_blk and shape), timed by the block-conv "
+                 "microbench in the convs phase, whose launches it counts "
+                 "apart"})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -12,8 +12,9 @@ from .anatomy import (binned_sum, hard_anatomy_dice, matched_grid_grad,
                       matched_grid_grad_plain, matched_warp,
                       matched_warp_fused, matched_warp_fused_plain,
                       matched_warp_plain)
-from .conv3d import (conv3d_k3, conv3d_k3_plain, conv3d_k3_wgrad,
-                     conv3d_k3_wgrad_plain, conv3d_point, conv3d_point_plain)
+from .conv3d import (conv3d_k3, conv3d_k3_block, conv3d_k3_block_plain,
+                     conv3d_k3_plain, conv3d_k3_wgrad, conv3d_k3_wgrad_plain,
+                     conv3d_point, conv3d_point_plain)
 from .deconv3d import deconv2x, deconv2x_plain, nearest_up2x
 from .warp import (grid_sample, splat_trilinear, splat_trilinear_plain,
                    warp_grid_grad, warp_grid_grad_plain, warp_trilinear,
@@ -23,7 +24,8 @@ from .warp_lncc import warp_lncc_loss
 # wrapper -> its plain version, in the order a training step of the U-Net,
 # one of VoxelMorph and then the joint training first launch them
 # (matched_grid_grad is the backward of matched_warp, which the joint
-# training never differentiates)
+# training never differentiates; conv3d_k3_block, the multi-plane k3
+# forward, runs in the block-conv microbench, on no model path)
 KERNELS = {
     "conv3d_k3": (conv3d_k3, conv3d_k3_plain),
     "deconv2x": (deconv2x, deconv2x_plain),
@@ -35,6 +37,7 @@ KERNELS = {
     "matched_warp_fused": (matched_warp_fused, matched_warp_fused_plain),
     "matched_warp": (matched_warp, matched_warp_plain),
     "matched_grid_grad": (matched_grid_grad, matched_grid_grad_plain),
+    "conv3d_k3_block": (conv3d_k3_block, conv3d_k3_block_plain),
 }
 
 
@@ -48,7 +51,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "binned_sum", "conv3d_k3", "conv3d_k3_plain",
+__all__ = ["KERNELS", "binned_sum", "conv3d_k3", "conv3d_k3_block",
+           "conv3d_k3_block_plain", "conv3d_k3_plain",
            "conv3d_k3_wgrad", "conv3d_k3_wgrad_plain", "conv3d_point",
            "conv3d_point_plain", "deconv2x", "deconv2x_plain", "grid_sample",
            "hard_anatomy_dice", "launch_counts", "matched_grid_grad",

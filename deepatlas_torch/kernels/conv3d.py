@@ -1,9 +1,11 @@
-"""3-D convolutions on channel-last tensors: the k3 conv, its weight
-gradient, and the 1x1x1 conv.
+"""3-D convolutions on channel-last tensors: the k3 conv, its multi-plane
+variant, its weight gradient, and the 1x1x1 conv.
 
 ``conv3d_k3`` replaces the TPU kernel
 ``deepatlas_tpu/pallas/conv3d.py::_conv_fwd_kernel`` (``packed_conv3d``
-with a k3 kernel); ``conv3d_k3_wgrad`` replaces ``_conv_wgrad_kernel``;
+with a k3 kernel); ``conv3d_k3_block`` replaces ``_conv_fwd_block_kernel``
+(``packed_conv3d_block``: the same conv, forward only, ``p_blk`` output
+planes per step); ``conv3d_k3_wgrad`` replaces ``_conv_wgrad_kernel``;
 ``conv3d_point`` replaces ``_conv_point_kernel`` (``packed_conv3d`` with a
 1x1x1 kernel).  All run on plain contiguous ``(B, D, H, W, C)`` tensors with
 any channel count: the TPU kernels' packed ``(D, H, W*C)`` lane layout,
@@ -15,7 +17,8 @@ flops per voxel against ``2*(Cin+Cout)`` bytes in bf16, far above the card's
 ~295 flops/byte balance point, so they are bound by operations; the 1x1x1
 conv (16 -> n_classes on the U-Net head) is bound by bytes.  The CUDA
 designs and what they do about each bound are described in
-``csrc/conv3d.cu``, ``csrc/conv3d_wgrad.cu`` and ``csrc/channel_mix.cuh``.
+``csrc/conv3d.cu``, ``csrc/conv3d_block.cu``, ``csrc/conv3d_wgrad.cu`` and
+``csrc/channel_mix.cuh``.
 
 Each wrapper dispatches on the input's device only: a CPU tensor goes to the
 plain PyTorch version beside it, a CUDA tensor to the CUDA kernel (or the
@@ -60,6 +63,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "conv3d_k3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "conv3d_point": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+}
+_BLOCK_SIGNATURES = {
+    "conv3d_k3_block": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 _WGRAD_SIGNATURES = {
     "conv3d_k3_wgrad_chunks": [_I, _I, _I, _I, _I, _I, _I],
@@ -242,6 +248,71 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3d_k3.launches = 0
+
+
+# ----------------------------------------- k3 conv, p_blk planes per step
+
+def _check_p_blk(p_blk) -> None:
+    if isinstance(p_blk, bool) or not isinstance(p_blk, int) \
+            or not 1 <= p_blk <= 8:
+        raise ValueError(f"conv3d_k3_block: p_blk must be an int in 1..8, "
+                         f"got {p_blk!r}")
+
+
+def _block_cuda(x, wk, p_blk):
+    b, d, h, wd, cin = x.shape
+    cout = wk.shape[-1]
+    y = torch.empty(b, d, h, wd, cout, dtype=x.dtype, device=x.device)
+    lib = build.load("conv3d_block", _BLOCK_SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3d_k3_block(_DTYPES[x.dtype], x.data_ptr(),
+                                 wk.data_ptr(), y.data_ptr(), b, d, h, wd,
+                                 cin, cout, p_blk, stream)
+    build.check(rc, "conv3d_k3_block")
+    conv3d_k3_block.launches += 1
+    return y
+
+
+def conv3d_k3_block_plain(x: torch.Tensor, w: torch.Tensor,
+                          p_blk: int = 4) -> torch.Tensor:
+    """The plain PyTorch version of ``conv3d_k3_block``: the k3 conv's 27
+    shifted contractions (``p_blk`` splits the kernel's work and does not
+    change the function)."""
+    _check_p_blk(p_blk)
+    return _k3_math(x, *kernel_operands(x, w, None))
+
+
+def conv3d_k3_block(x: torch.Tensor, w: torch.Tensor,
+                    p_blk: int = 4) -> torch.Tensor:
+    """Conv3d kernel 3, stride 1, zero padding 1, no bias, computed
+    ``p_blk`` output planes at a time (see ``csrc/conv3d_block.cu``); the
+    same function as ``conv3d_k3(x, w)``.  Forward only, as the JAX
+    package's ``packed_conv3d_block``: it raises where autograd would need
+    its gradient.
+
+    Args:
+      x: ``(B, D, H, W, Cin)`` float32 or bfloat16, contiguous.
+      w: ``(3, 3, 3, Cin, Cout)``, rounded to x's type.
+      p_blk: output planes per block of the CUDA kernel, 1..8; any depth
+        (the tail block is guarded in the kernel).
+
+    Returns ``(B, D, H, W, Cout)`` in x's type.
+    """
+    check_operands(x, w, None, (3, 3, 3), "conv3d_k3_block")
+    _check_p_blk(p_blk)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "conv3d_k3_block is forward only and has no gradient (as the JAX "
+            "package's packed_conv3d_block): call it under torch.no_grad() "
+            "or use conv3d_k3, the differentiable conv")
+    wk, _ = kernel_operands(x, w, None)
+    if x.device.type == "cpu":
+        return _k3_math(x, wk, None)
+    return _block_cuda(x, wk, p_blk)
+
+
+conv3d_k3_block.launches = 0
 
 
 # ------------------------------------------------- k3 weight gradient

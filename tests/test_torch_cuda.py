@@ -540,3 +540,55 @@ def test_joint_seg_step_launches_per_regime_on_card(cuda, flags):
     for k, v in reg.state_dict().items():
         assert torch.equal(v, reg_init[k]), k
     assert all(p.grad is None for p in reg.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout", [((1, 7, 9, 33), 1, 8),
+                                            ((2, 10, 13, 40), 48, 16),
+                                            ((1, 12, 5, 21), 16, 72),
+                                            ((1, 21, 25, 21), 64, 64),
+                                            ((1, 3, 8, 40), 96, 5)])
+@pytest.mark.parametrize("p_blk", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_conv_matches_plain_on_card(cuda, shape, cin, cout, p_blk,
+                                          dtype):
+    """Kernel K at every p_blk (every template instantiation), depths that
+    are not a multiple of it (the tail block), ragged (y, x) tiles, batch 2,
+    one input channel, Cout that fills its last channel block only partly
+    and Cout that is not a multiple of 8 (scalar stores): against its plain
+    version and against kernel A, the same function, each within the
+    tolerances of the other conv tests."""
+    from deepatlas_torch.kernels import (conv3d_k3, conv3d_k3_block,
+                                         conv3d_k3_block_plain)
+
+    rng = np.random.RandomState(230)
+    x = torch.from_numpy(rng.randn(*shape, cin).astype(np.float32)).to(
+        cuda, dtype)
+    w = torch.from_numpy((rng.randn(3, 3, 3, cin, cout) * 0.2).astype(
+        np.float32)).to(cuda)
+    before = conv3d_k3_block.launches
+    got = conv3d_k3_block(x, w, p_blk=p_blk)
+    ref = conv3d_k3_block_plain(x, w, p_blk=p_blk)
+    a = conv3d_k3(x, w)
+    torch.cuda.synchronize()
+    assert conv3d_k3_block.launches == before + 1
+    assert got.shape == shape + (cout,) and got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for other in (ref, a):
+        err = (got.float() - other.float()).abs().max().item()
+        assert err <= tol * other.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_block_conv_raises_on_card(cuda):
+    from deepatlas_torch.kernels import conv3d_k3_block
+
+    x = torch.zeros(1, 4, 4, 4, 8, device=cuda)
+    w = torch.zeros(3, 3, 3, 8, 8, device=cuda)
+    for p_blk in (0, 9):
+        with pytest.raises(ValueError, match="p_blk"):
+            conv3d_k3_block(x, w, p_blk=p_blk)
+    with pytest.raises(RuntimeError, match="forward only"):
+        conv3d_k3_block(x, w.clone().requires_grad_())
+    with pytest.raises(ValueError, match="operands on"):
+        conv3d_k3_block(x, w.cpu())

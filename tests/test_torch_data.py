@@ -213,6 +213,8 @@ def test_port_imports_no_jax():
         " 'deepatlas_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import infer_seg_torch, chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import bench_packed_conv_torch, bench_block_conv_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'orbax', 'deepatlas_tpu'))\n"
         "print(bad)\n"
