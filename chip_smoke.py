@@ -6,18 +6,25 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
 
   1. device  -- card name, ``nvidia-smi`` name and power limit; TF32 off for
      every float32 reference.
-  2. build   -- compile the CUDA sources of deepatlas_torch/kernels/csrc.
+  2. build   -- compile the CUDA sources of deepatlas_torch/kernels/csrc
+     (the ``ptxas`` report of every kernel logged).
   3. kernels -- each kernel against its plain PyTorch version at every
      shape the four main paths launch it at, in float32 and bfloat16, with
      kernel / plain / library (cuDNN) times from CUDA events and the least
-     time the card could take (``bound_ms``).  Serving: the UNet_light tile
+     time the card could take (``bound_ms``).  The k3 conv and its weight
+     gradient run on the tensor cores in bfloat16 (``csrc/conv3d_mma.cu``)
+     and on the CUDA cores in float32 (``csrc/conv3d.cu``,
+     ``csrc/conv3d_wgrad.cu``); every bfloat16 weight gradient is computed
+     twice and the two must be equal bit for bit.  Serving: the UNet_light tile
      forward (batch 4 of 128^3 tiles).  Training: one step on a 168x200x168
      volume with 32 classes -- the forward convs, kernel A again at its 13
      input-gradient shapes (Cin and Cout swapped), the head's kernel at its
      input-gradient shape, and the k3 weight-gradient kernel at its 14
      shapes.  Registration: one VoxelMorph step on a 168x200x168 pair --
      kernel A at its 11 forward (4 of them strided) and 10 input-gradient
-     shapes and the weight-gradient kernel at its 11 (4 strided), the
+     (4 strided: the parity-class launch in bfloat16, the stride-1 kernel
+     on the zero-stuffed gradient in float32) shapes and the
+     weight-gradient kernel at its 11 (4 strided), the
      transposed-conv kernel at the decoder's full-resolution upsample (also
      with the identity bank against ``nearest_resize``), and the three warp
      kernels (trilinear warp, its grid
@@ -103,9 +110,11 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      within ``STEP_METRIC_TOL``; on the trained state each step is
      profiled.  The seeded draw's untrained field is also measured on the
      first pair at the corpus's intensity and at three times it.
-  8. convs   -- the conv tools: ``tools/bench_packed_conv_torch.py`` (the
-     per-shape roofline of kernels A, B and C on UNet_light's forward at
-     168x200x168) and ``tools/bench_block_conv_torch.py`` (kernel K at p_blk
+  8. convs   -- the conv tools: ``tools/bench_packed_conv_torch.py
+     --before-after`` (the per-shape roofline of kernels A, B and C on
+     UNet_light's forward at 168x200x168, then A and D in bf16 per shape on
+     the tensor cores, on the CUDA cores and in cuDNN, in turns) and
+     ``tools/bench_block_conv_torch.py`` (kernel K at p_blk
      2, 4 and 8 against kernel A, cuDNN beside), ``--iters 3`` each, with
      their rows logged; each kernel must launch exactly as often as the
      tool called it, K's launches are the ones its kernels entry counts
@@ -136,14 +145,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # what each kernel replaces (the Pallas kernel's def line) and its source
+# (the main paths' bfloat16 one where the type picks the kernel)
 KERNEL_INFO = {
-    "conv3d_k3": ("deepatlas_torch/kernels/csrc/conv3d.cu",
+    "conv3d_k3": ("deepatlas_torch/kernels/csrc/conv3d_mma.cu",
                   "deepatlas_tpu/pallas/conv3d.py:170"),
     "deconv2x": ("deepatlas_torch/kernels/csrc/deconv3d.cu",
                  "deepatlas_tpu/pallas/deconv3d.py:55"),
     "conv3d_point": ("deepatlas_torch/kernels/csrc/conv3d.cu",
                      "deepatlas_tpu/pallas/conv3d.py:215"),
-    "conv3d_k3_wgrad": ("deepatlas_torch/kernels/csrc/conv3d_wgrad.cu",
+    "conv3d_k3_wgrad": ("deepatlas_torch/kernels/csrc/conv3d_mma.cu",
                         "deepatlas_tpu/pallas/conv3d.py:359"),
     "warp_trilinear": ("deepatlas_torch/kernels/csrc/warp.cu",
                        "deepatlas_tpu/pallas/warp.py:329"),
@@ -159,6 +169,15 @@ KERNEL_INFO = {
                           "deepatlas_tpu/pallas/anatomy.py:213"),
     "conv3d_k3_block": ("deepatlas_torch/kernels/csrc/conv3d_block.cu",
                         "deepatlas_tpu/pallas/conv3d.py:273"),
+}
+# the kernels whose source the tensor's type picks: the tensor cores in
+# bfloat16 (every main path), the CUDA cores in float32
+SOURCES_BY_DTYPE = {
+    "conv3d_k3": {"bfloat16": "deepatlas_torch/kernels/csrc/conv3d_mma.cu",
+                  "float32": "deepatlas_torch/kernels/csrc/conv3d.cu"},
+    "conv3d_k3_wgrad": {
+        "bfloat16": "deepatlas_torch/kernels/csrc/conv3d_mma.cu",
+        "float32": "deepatlas_torch/kernels/csrc/conv3d_wgrad.cu"},
 }
 PATHS = ("serving", "training", "registration", "joint")
 
@@ -395,9 +414,11 @@ def voxelmorph_cases(path, batch, dhw):
     ``(batch, *dhw)`` pair, keyed as ``unet_cases`` keys them; the size is
     the conv's input's.  A strided conv (roles ``forward_s2`` and
     ``wgrad_s2``) writes ``ceil(n / 2)`` voxels per axis; its input gradient
-    (role ``dx_s2``) is the stride-1 kernel at the input's resolution on a
-    zero-stuffed upstream gradient, but is bounded by what the function
-    needs: the ``ceil(n / 2)`` gradient read once and 1/8 of the stride-1
+    (role ``dx_s2``) reads the ``ceil(n / 2)`` gradient and writes the
+    input's resolution, one launch of ``conv3d_k3_input_grad`` (in bfloat16
+    over the 8 parity classes, 1/8 of the stride-1 operations; in float32
+    the stride-1 kernel on a zero-stuffed gradient), and is bounded by what
+    the function needs: the gradient read once and 1/8 of the stride-1
     operations.  The decoder's upsample to full resolution is the
     transposed-conv kernel (timed on a random bank; its time and its byte
     bound do not depend on the bank's values)."""
@@ -481,14 +502,21 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def library_call(kernel, x, w, stride=1):
+def library_call(kernel, x, w, stride=1, dhw=None):
     """One PyTorch (cuDNN) call computing the same function: the yardstick
     for ``library_ms`` only; the port never calls it.  For the weight
-    gradient ``w`` is the upstream gradient."""
+    gradient ``w`` is the upstream gradient; with ``dhw`` (the input's
+    size) the k3 conv's call is its input gradient, ``x`` the upstream
+    gradient and ``w`` the conv's weights."""
     import torch
     import torch.nn.functional as F
 
     xc = x.permute(0, 4, 1, 2, 3)           # NDHWC storage, NCDHW view
+    if dhw is not None:
+        wk = w.to(x.dtype).permute(4, 3, 0, 1, 2)
+        size = (x.shape[0], w.shape[-2]) + tuple(dhw)
+        return lambda: torch.nn.grad.conv3d_input(size, wk, xc,
+                                                  stride=stride, padding=1)
     if kernel == "conv3d_k3_wgrad":
         gc = w.permute(0, 4, 1, 2, 3)
         size = (w.shape[-1], x.shape[-1], 3, 3, 3)
@@ -525,7 +553,8 @@ def check_kernels(seed):
     step); the warp kernels' entries are filled by ``check_warp_kernels``."""
     import torch
 
-    from deepatlas_torch.kernels import KERNELS
+    from deepatlas_torch.kernels import (KERNELS, conv3d_k3_input_grad,
+                                         conv3d_k3_input_grad_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "flops", "bytes")
@@ -537,17 +566,26 @@ def check_kernels(seed):
         fn, plain = KERNELS[name]
         n = batch * int(np.prod(size))
         big = n * max(cin, cout) > 2e8      # fewer repeats on the largest
-        # the strided layers' input gradient runs the stride-1 kernel
-        stride = 2 if role in ("forward_s2", "wgrad_s2") else 1
+        stride = 2 if role.endswith("_s2") else 1
         kw = {"stride": 2} if stride == 2 else {}
         out_size = tuple(-(-v // stride) for v in size)
-        n_out = batch * int(np.prod(
-            [-(-v // 2) for v in size] if role == "dx_s2" else out_size))
+        n_out = batch * int(np.prod(out_size))
+        in_size = size
+        if role == "dx_s2":
+            # the strided conv's input gradient: the upstream gradient
+            # (cin channels at ceil(n / 2)) to the input (cout channels)
+            fn, plain = conv3d_k3_input_grad, conv3d_k3_input_grad_plain
+            kw = {"dhw": size, "stride": 2}
+            in_size = out_size
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
-            x = (torch.rand((batch,) + size + (cin,), generator=gen,
+            x = (torch.rand((batch,) + in_size + (cin,), generator=gen,
                             device="cuda") * 2 - 1).to(dtype)
-            if name == "conv3d_k3_wgrad":
+            if role == "dx_s2":
+                second = torch.randn((3, 3, 3, cout, cin), generator=gen,
+                                     device="cuda") / np.sqrt(27 * cout)
+                args = timed_args = (x, second)
+            elif name == "conv3d_k3_wgrad":
                 second = (torch.rand((batch,) + out_size + (cout,),
                                      generator=gen, device="cuda") * 2
                           - 1).to(dtype)
@@ -574,24 +612,33 @@ def check_kernels(seed):
             # in both types (bf16 products are exact in float32)
             tol = TOL["float32"] if name == "conv3d_k3_wgrad" else TOL[dname]
             ok = bool(np.isfinite(err)) and err <= tol * scale
+            # the weight gradient's fixed-order sums: the same bits again
+            repeatable = None
+            if name == "conv3d_k3_wgrad":
+                repeatable = bool(torch.equal(got, fn(*args, **kw)))
+                ok = ok and repeatable
             del got, ref
             ms = cuda_ms(lambda: fn(*timed_args, **kw), reps=3 if big else 5)
             plain_ms = cuda_ms(lambda: plain(*timed_args, **kw),
                                reps=1 if big else 2, warmup=0 if big else 1)
-            lib_ms = cuda_ms(library_call(name, x, second, stride),
+            lib_ms = cuda_ms(library_call(name, x, second, stride,
+                                          size if role == "dx_s2" else None),
                              reps=3 if big else 5)
             bms, bound_by = bound_ms(name, n, cin, cout, dname, n_out, role)
             log({"phase": "kernels", "path": path, "kernel": name,
                  "role": role, "dtype": dname, "x": list(x.shape),
                  "cin": cin, "cout": cout, "launches_per_unit": per_unit,
+                 "source": SOURCES_BY_DTYPE.get(name, {}).get(dname),
                  "max_abs_err": err, "max_abs_ref": scale,
-                 "rel_tol": tol, "ok": ok, "kernel_ms": ms,
+                 "rel_tol": tol, "bit_identical_rerun": repeatable,
+                 "ok": ok, "kernel_ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
                  "bound_ms": bms, "bound_by": bound_by})
             if not ok:
                 raise AssertionError(f"{name} {role} {dname} "
                                      f"{tuple(x.shape)} -> {cout}: max|k-p| "
-                                     f"{err} > {tol} * {scale}")
+                                     f"{err} (limit {tol} * {scale}), "
+                                     f"bit-identical rerun {repeatable}")
             summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
                                                err)
             if dname == "bfloat16":       # the main paths' type, per unit
@@ -1148,20 +1195,21 @@ def run_conv_tools():
     from deepatlas_torch.kernels import launch_counts, reset_launch_counts
 
     results = {}
-    for name, tool in (("roofline", bench_packed_conv_torch),
-                       ("block", bench_block_conv_torch)):
+    for name, tool, extra in (
+            ("roofline", bench_packed_conv_torch, ["--before-after"]),
+            ("block", bench_block_conv_torch, [])):
         t0 = time.perf_counter()
         table = io.StringIO()
         reset_launch_counts()
         with contextlib.redirect_stdout(table):
-            res = tool.main(["--iters", str(CONV_TOOL_ITERS)])
+            res = tool.main(["--iters", str(CONV_TOOL_ITERS), *extra])
         counts = launch_counts()
         seconds = time.perf_counter() - t0
         want = dict(NO_LAUNCHES, **res["calls"])
         log({"phase": "convs", "tool": tool.__name__ + ".py",
              "iters": CONV_TOOL_ITERS, "seconds": seconds,
              "table": table.getvalue().splitlines(), "rows": res["rows"],
-             "calls": res["calls"],
+             "before_after": res.get("before_after"), "calls": res["calls"],
              "launches": {k: v for k, v in counts.items() if v}})
         if counts != want:
             raise AssertionError(f"{tool.__name__}: launches {counts}, "
@@ -1458,6 +1506,7 @@ def plain_math():
     from deepatlas_torch.kernels import anatomy, conv3d, deconv3d, warp
 
     with mock.patch.object(conv3d, "_k3_cuda", conv3d._k3_math), \
+            mock.patch.object(conv3d, "_dx_cuda", conv3d._dx_math), \
             mock.patch.object(conv3d, "_wgrad_cuda", conv3d._wgrad_math), \
             mock.patch.object(conv3d, "_point_cuda", conv3d._point_math), \
             mock.patch.object(deconv3d, "_deconv_cuda",
@@ -2532,6 +2581,8 @@ def main(argv=None):
         nbytes = sum(s[path]["bytes"] for path in PATHS)
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces,
+                 **({"sources": SOURCES_BY_DTYPE[name]}
+                    if name in SOURCES_BY_DTYPE else {}),
                  "launches": sum(launches[path][name] for path in PATHS),
                  "max_abs_err": s["max_abs_err"]}
         for key in times:

@@ -17,12 +17,17 @@ flops per voxel against ``2*(Cin+Cout)`` bytes in bf16, far above the card's
 ~295 flops/byte balance point, so they are bound by operations; the 1x1x1
 conv (16 -> n_classes on the U-Net head) is bound by bytes.  The CUDA
 designs and what they do about each bound are described in
-``csrc/conv3d.cu``, ``csrc/conv3d_block.cu``, ``csrc/conv3d_wgrad.cu`` and
-``csrc/channel_mix.cuh``.
+``csrc/conv3d_mma.cu``, ``csrc/conv3d.cu``, ``csrc/conv3d_block.cu``,
+``csrc/conv3d_wgrad.cu`` and ``csrc/channel_mix.cuh``.
 
-Each wrapper dispatches on the input's device only: a CPU tensor goes to the
-plain PyTorch version beside it, a CUDA tensor to the CUDA kernel (or the
-wrapper raises).  ``<wrapper>.launches`` counts kernel launches.
+Each wrapper dispatches on the input's device, and the k3 conv and its
+weight gradient on a CUDA tensor's type too: a CPU tensor goes to the plain
+PyTorch version beside it; a bfloat16 CUDA tensor to the tensor-core kernels
+of ``csrc/conv3d_mma.cu`` (``mma.sync``, as the TPU kernels compute on the
+MXU in bf16 with float32 sums); a float32 CUDA tensor to the CUDA-core
+kernels of ``csrc/conv3d.cu`` and ``csrc/conv3d_wgrad.cu``.  A kernel that
+cannot launch raises: there is no fallback.  ``<wrapper>.launches`` counts
+kernel launches.
 
 Gradients: ``conv3d_k3`` and ``conv3d_point`` are ``torch.autograd.Function``s
 whose backward follows the JAX package's ``custom_vjp``s.  For the k3 conv
@@ -38,12 +43,16 @@ Conv3d(k3 s2 p1) is the stride-1 conv subsampled at the even indices (output
 ``o`` reads inputs ``2o-1..2o+1``; ``ceil(n / 2)`` outputs per axis); the
 kernels compute only those outputs, the plain versions compute them all and
 subsample (forward) or put the upstream gradient at the even positions of a
-zero tensor (weight gradient).  The strided conv's ``dx`` is the stride-1
-kernel on that zero-stuffed gradient.
+zero tensor (weight gradient).  The strided conv's ``dx`` is, in the plain
+version and on the float32 CUDA-core kernel, the stride-1 conv of that
+zero-stuffed gradient; in bfloat16 on the card it is one launch over the 8
+parity classes of the input voxels (``parity_tap_table``), which reads the
+gradient as it is and does 1/8 of that work.
 
 Types: x float32 or bfloat16; weights are rounded to x's type (as the JAX
-modules cast their float32 parameters to the compute type), products
-accumulate in float32, and the output is rounded to x's type once.  The
+modules cast their float32 parameters to the compute type; the tensor-core
+kernels read them packed by ``pack_k3_weights``), products accumulate in
+float32, and the output is rounded to x's type once.  The
 upstream gradient is rounded to x's type first; ``dx`` comes back in x's
 type, ``dW`` and ``db`` in float32, and the weight's rounding passes the
 gradient straight through.
@@ -70,6 +79,13 @@ _BLOCK_SIGNATURES = {
 _WGRAD_SIGNATURES = {
     "conv3d_k3_wgrad_chunks": [_I, _I, _I, _I, _I, _I, _I],
     "conv3d_k3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+_MMA_SIGNATURES = {
+    "conv3d_k3_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "conv3d_k3_dx_s2_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            ctypes.POINTER(ctypes.c_int), _P],
+    "conv3d_k3_wgrad_mma_chunks": [_I, _I, _I, _I, _I, _I, _I],
+    "conv3d_k3_wgrad_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -168,7 +184,30 @@ def _k3_math(x, wk, bk, stride=1):
     return out.to(x.dtype)
 
 
-def _k3_cuda(x, wk, bk, stride=1):
+def _round8(n: int) -> int:
+    return -(-int(n) // 8) * 8
+
+
+def pack_k3_weights(wk: torch.Tensor) -> torch.Tensor:
+    """k3 weights ``(3, 3, 3, Cin, Cout)`` in the tensor-core kernels'
+    layout: a bfloat16 ``(K_pad, NP)`` matrix whose row ``tap * CP + ci``
+    (``tap = kz*9 + ky*3 + kx``) holds ``w[kz, ky, kx, ci, :]``, with the
+    channels padded by zeros to ``CP = ceil(Cin / 8) * 8`` rows per tap and
+    ``NP = ceil(Cout / 8) * 8`` columns, and ``27 * CP`` rows padded to
+    ``K_pad``, a multiple of 16 (the depth of one ``mma``).  Values are
+    rounded to bfloat16 (exact for weights that ``kernel_operands``
+    rounded)."""
+    cin, cout = wk.shape[-2:]
+    cp, npad = _round8(cin), _round8(cout)
+    rows = 27 * cp
+    packed = F.pad(wk.detach().to(torch.bfloat16),
+                   (0, npad - cout, 0, cp - cin)).reshape(rows, npad)
+    return F.pad(packed, (0, 0, 0, -(-rows // 16) * 16 - rows)).contiguous()
+
+
+def _k3_simt(x, wk, bk, stride=1):
+    """Kernel A on the CUDA cores (``csrc/conv3d.cu``), float32 weights;
+    takes either type (the float32 path's kernel)."""
     b, d, h, wd, cin = x.shape
     cout = wk.shape[-1]
     y = torch.empty(b, *strided_shape((d, h, wd), stride), cout,
@@ -180,6 +219,29 @@ def _k3_cuda(x, wk, bk, stride=1):
                            _ptr(bk), y.data_ptr(), b, d, h, wd, cin, cout,
                            stride, stream)
     build.check(rc, "conv3d_k3")
+    return y
+
+
+def _k3_mma(x, wk, bk, stride=1):
+    """Kernel A on the tensor cores (``csrc/conv3d_mma.cu``), bfloat16."""
+    b, d, h, wd, cin = x.shape
+    cout = wk.shape[-1]
+    wpk = pack_k3_weights(wk)
+    y = torch.empty(b, *strided_shape((d, h, wd), stride), cout,
+                    dtype=x.dtype, device=x.device)
+    lib = build.load("conv3d_mma", _MMA_SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3d_k3_mma(x.data_ptr(), wpk.data_ptr(), _ptr(bk),
+                               y.data_ptr(), b, d, h, wd, cin, cout, stride,
+                               stream)
+    build.check(rc, "conv3d_k3")
+    return y
+
+
+def _k3_cuda(x, wk, bk, stride=1):
+    y = (_k3_mma if x.dtype == torch.bfloat16 else _k3_simt)(x, wk, bk,
+                                                               stride)
     conv3d_k3.launches += 1
     return y
 
@@ -203,6 +265,70 @@ def adjoint_k3_weights(wk: torch.Tensor) -> torch.Tensor:
     return wk.flip(0, 1, 2).transpose(3, 4).contiguous()
 
 
+def parity_tap_table() -> tuple:
+    """The taps of the stride-2 k3 conv's input gradient by parity class.
+
+    Input ``i`` meets output ``o`` through tap ``k`` where ``i = 2o + k - 1``:
+    per axis, an even ``i`` through tap 1 (``o = i / 2``) and an odd ``i``
+    through taps 0 (``o = (i + 1) / 2``) and 2 (``o = (i - 1) / 2``).  Class
+    ``pz*4 + py*2 + px`` holds the input voxels of those parities; its
+    entry lists its taps ``kz*9 + ky*3 + kx`` (1, 2, 4 or 8 of them, 27 in
+    all).  Tap ``k`` of parity ``p`` reads the gradient at ``q + (p + 1 -
+    k) // 2`` for input ``2q + p``."""
+    per_parity = ((1,), (0, 2))
+    return tuple(
+        tuple(9 * kz + 3 * ky + kx for kz in per_parity[cls >> 2]
+              for ky in per_parity[(cls >> 1) & 1]
+              for kx in per_parity[cls & 1])
+        for cls in range(8))
+
+
+def _tap_table_arg():
+    """``parity_tap_table`` as the C entry point takes it: 8 tap counts,
+    then 8 x 8 taps (zero past each count)."""
+    table = parity_tap_table()
+    flat = [len(t) for t in table]
+    for taps in table:
+        flat += list(taps) + [0] * (8 - len(taps))
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _dx_math(g, wt, dhw, stride):
+    """The plain input gradient: the stride-1 conv, with the adjoint weights
+    ``wt`` (``adjoint_k3_weights``), of the upstream gradient ``g`` put at
+    every ``stride``-th voxel of a zero tensor of the input's size
+    ``dhw``."""
+    return _k3_math(zero_stuffed(g, dhw, stride), wt, None)
+
+
+def _dx_s2_mma(g, wt, dhw):
+    """The stride-2 input gradient on the tensor cores, by parity class."""
+    b, cg = g.shape[0], g.shape[-1]
+    cx = wt.shape[-1]
+    wpk = pack_k3_weights(wt)
+    dx = torch.empty(b, *dhw, cx, dtype=g.dtype, device=g.device)
+    lib = build.load("conv3d_mma", _MMA_SIGNATURES)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3d_k3_dx_s2_mma(g.data_ptr(), wpk.data_ptr(),
+                                     dx.data_ptr(), b, *(int(n) for n in dhw),
+                                     cg, cx, _tap_table_arg(), stream)
+    build.check(rc, "conv3d_k3 (stride-2 input gradient)")
+    conv3d_k3.launches += 1
+    return dx
+
+
+def _dx_cuda(g, wt, dhw, stride):
+    if stride == 2 and g.dtype == torch.bfloat16:
+        return _dx_s2_mma(g, wt, tuple(dhw))
+    return _k3_cuda(zero_stuffed(g, dhw, stride), wt, None)
+
+
+def _dx_op(g, wt, dhw, stride):
+    return _dx_math(g, wt, dhw, stride) if g.device.type == "cpu" \
+        else _dx_cuda(g, wt, dhw, stride)
+
+
 class _ConvK3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, stride):
@@ -218,8 +344,7 @@ class _ConvK3(torch.autograd.Function):
         g = upstream(g, x)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _k3_op(zero_stuffed(g, x.shape[1:4], ctx.stride),
-                        adjoint_k3_weights(wk), None)
+            dx = _dx_op(g, adjoint_k3_weights(wk), x.shape[1:4], ctx.stride)
         if ctx.needs_input_grad[1]:
             dw = conv3d_k3_wgrad(x, g, ctx.stride)
         if ctx.has_bias and ctx.needs_input_grad[2]:
@@ -248,6 +373,59 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3d_k3.launches = 0
+
+
+def _check_input_grad_operands(g, w, dhw, stride):
+    what = "conv3d_k3_input_grad"
+    _check_stride(stride, what)
+    if len(dhw) != 3 or g.dim() != 5 \
+            or tuple(g.shape[1:4]) != strided_shape(dhw, stride):
+        raise ValueError(f"{what}: g must be (B, ceil(n / stride) per axis of "
+                         f"{tuple(dhw)}, Cout), got {tuple(g.shape)}")
+    if g.dtype not in _DTYPES:
+        raise TypeError(f"{what}: g must be float32 or bfloat16, got "
+                        f"{g.dtype}")
+    if not g.is_contiguous():
+        raise ValueError(f"{what}: g must be contiguous")
+    if tuple(w.shape[:3]) != (3, 3, 3) or w.dim() != 5 \
+            or w.shape[-1] != g.shape[-1]:
+        raise ValueError(f"{what}: w must be (3, 3, 3, Cin, {g.shape[-1]}), "
+                         f"got {tuple(w.shape)}")
+    if w.device != g.device:
+        raise ValueError(f"{what}: operands on {g.device} and {w.device}")
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {g.device}")
+
+
+def conv3d_k3_input_grad(g: torch.Tensor, w: torch.Tensor, dhw,
+                         stride: int = 1) -> torch.Tensor:
+    """The input gradient of ``conv3d_k3(x, w, stride=stride)`` for an
+    input of spatial size ``dhw``, as its backward computes it (one launch
+    of kernel A on the card).
+
+    Args:
+      g: the gradient of the conv's output ``(B, D', H', W', Cout)``,
+        float32 or bfloat16, contiguous.
+      w: the conv's weights ``(3, 3, 3, Cin, Cout)``, rounded to g's type.
+      dhw: the input's ``(D, H, W)``.
+      stride: the conv's stride, 1 or 2.
+
+    Returns ``(B, D, H, W, Cin)`` in g's type.
+    """
+    _check_input_grad_operands(g, w, dhw, stride)
+    wk, _ = kernel_operands(g, w, None)
+    return _dx_op(g, adjoint_k3_weights(wk), tuple(int(n) for n in dhw),
+                  stride)
+
+
+def conv3d_k3_input_grad_plain(g: torch.Tensor, w: torch.Tensor, dhw,
+                               stride: int = 1) -> torch.Tensor:
+    """The plain PyTorch version of ``conv3d_k3_input_grad``: the stride-1
+    conv of the zero-stuffed gradient with the adjoint weights."""
+    _check_input_grad_operands(g, w, dhw, stride)
+    wk, _ = kernel_operands(g, w, None)
+    return _dx_math(g, adjoint_k3_weights(wk), tuple(int(n) for n in dhw),
+                    stride)
 
 
 # ----------------------------------------- k3 conv, p_blk planes per step
@@ -332,7 +510,9 @@ def _wgrad_math(x, g, stride=1):
     return dw
 
 
-def _wgrad_cuda(x, g, stride=1):
+def _wgrad_simt(x, g, stride=1):
+    """Kernel D on the CUDA cores (``csrc/conv3d_wgrad.cu``); takes either
+    type (the float32 path's kernel)."""
     b, d, h, wd, cin = x.shape
     cout = g.shape[-1]
     lib = build.load("conv3d_wgrad", _WGRAD_SIGNATURES)
@@ -348,6 +528,31 @@ def _wgrad_cuda(x, g, stride=1):
                                  dw.data_ptr(), b, d, h, wd, cin, cout,
                                  stride, stream)
     build.check(rc, "conv3d_k3_wgrad")
+    return dw
+
+
+def _wgrad_mma(x, g, stride=1):
+    """Kernel D on the tensor cores (``csrc/conv3d_mma.cu``), bfloat16."""
+    b, d, h, wd, cin = x.shape
+    cout = g.shape[-1]
+    lib = build.load("conv3d_mma", _MMA_SIGNATURES)
+    chunks = lib.conv3d_k3_wgrad_mma_chunks(b, d, h, wd, cin, cout, stride)
+    partial = torch.empty(chunks, 27, cin, cout, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty(3, 3, 3, cin, cout, dtype=torch.float32,
+                     device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3d_k3_wgrad_mma(x.data_ptr(), g.data_ptr(),
+                                     partial.data_ptr(), dw.data_ptr(), b, d,
+                                     h, wd, cin, cout, stride, stream)
+    build.check(rc, "conv3d_k3_wgrad")
+    return dw
+
+
+def _wgrad_cuda(x, g, stride=1):
+    dw = (_wgrad_mma if x.dtype == torch.bfloat16 else _wgrad_simt)(x, g,
+                                                                    stride)
     conv3d_k3_wgrad.launches += 1
     return dw
 
@@ -399,8 +604,9 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor,
       stride: the conv's stride, 1 or 2.
 
     Returns ``(3, 3, 3, Cin, Cout)`` float32 (products accumulated in
-    float32).  The CUDA kernel sums in a fixed order, so the result is the
-    same from run to run.
+    float32).  The CUDA kernels (tensor cores for bfloat16, CUDA cores for
+    float32) sum in a fixed order, so the result is the same from run to
+    run.
     """
     _check_wgrad_operands(x, g, stride)
     if x.device.type == "cpu":

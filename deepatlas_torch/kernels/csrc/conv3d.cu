@@ -1,18 +1,22 @@
 // 3-D convolutions on channel-last (B, D, H, W, C) tensors, for sm_90a.
 //
-// conv3d_k3: Conv3d kernel 3, stride 1 or 2, zero padding 1.  Replaces the TPU
+// conv3d_k3: Conv3d kernel 3, stride 1 or 2, zero padding 1, on the float32
+//   path (the wrapper sends bfloat16 to the tensor-core kernel of
+//   conv3d_mma.cu; this entry point still takes bf16, for the conv tool's
+//   before/after table).  Replaces the TPU
 //   kernel deepatlas_tpu/pallas/conv3d.py::_conv_fwd_kernel (and its packed
 //   (D, H, W*C) lane layout and banded weight bank, which exist only for
 //   the TPU's 128-lane tiles).  At the U-Net's shapes (Cin 1..128, Cout
 //   8..64, 16^3..128^3 voxels) the conv does 2*27*Cin*Cout flops per voxel
 //   against 2*(Cin+Cout) bytes, i.e. it is bound by operations on this
-//   card.  This first version is a direct convolution on the CUDA cores in
+//   card.  It is a direct convolution on the CUDA cores in
 //   float32 (no tensor cores): a block owns a 32x4x4 tile of output voxels
 //   and CO_BLK output channels, stages the input halo (34x6x6 voxels, 4
 //   input channels at a time) and the matching weights in shared memory,
 //   and each thread accumulates 2 voxels x CO_BLK channels in registers,
-//   reading each weight vector once for both voxels.  Tensor-core implicit
-//   GEMM is the next step.  With stride 2 (the VoxelMorph encoder) the same
+//   reading each weight vector once for both voxels (the bf16 path's
+//   tensor-core implicit GEMM is conv3d_mma.cu).  With stride 2 (the
+//   VoxelMorph encoder) the same
 //   block owns 32x4x4 voxels of the strided output (output o reads inputs
 //   2o-1..2o+1, ceil(n/2) outputs per axis), stages the 65x9x9 input halo
 //   they touch 2 channels at a time, and skips the odd outputs that a

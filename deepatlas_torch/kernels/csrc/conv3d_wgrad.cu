@@ -1,7 +1,10 @@
 // Weight gradient of the k3 p1 conv (stride 1 or 2) on channel-last
 // (B, D, H, W, C) tensors, for sm_90a.
 //
-// conv3d_k3_wgrad: replaces the TPU kernel
+// conv3d_k3_wgrad: the float32 path's weight gradient (the wrapper sends
+//   bfloat16 to the tensor-core kernel of conv3d_mma.cu; this entry point
+//   still takes bf16, for the conv tool's before/after table).  Replaces
+//   the TPU kernel
 //   deepatlas_tpu/pallas/conv3d.py::_conv_wgrad_kernel.  That kernel
 //   produces the gradient of a banded block-Toeplitz weight bank on packed
 //   (D, H, W*C) planes and carries its sum from one sequential grid step to
@@ -37,8 +40,8 @@
 //   x's resolution would multiply by zero.  The halo no longer fits static
 //   shared memory, so both strides take theirs dynamically.
 //
-//   This first version runs on the CUDA cores in float32 (bf16 products are
-//   exact in float32); a tensor-core version is the next step.
+//   It runs on the CUDA cores in float32 (bf16 products are exact in
+//   float32); the bf16 path's tensor-core version is conv3d_mma.cu.
 //
 // x and g share one type (float32 or bfloat16).  Every entry point returns
 // cudaGetLastError() of its launches.

@@ -592,3 +592,150 @@ def test_block_conv_raises_on_card(cuda):
         conv3d_k3_block(x, w.clone().requires_grad_())
     with pytest.raises(ValueError, match="operands on"):
         conv3d_k3_block(x, w.cpu())
+
+
+# ------------------------------------------- tensor-core kernels (bfloat16)
+# Channel counts of the four paths' edges (the 1- and 2-channel entry
+# convs, VoxelMorph's 3-channel flow head, the decoders' 24, 48 and 96
+# channels after a concatenation, UNet_light's widest 128 and 64) and a
+# Cout above one 64-channel block (72); widths 21, 25, 42, 50 and 84 leave
+# a ragged last 16-wide tile, and odd depths and heights a ragged tile in
+# every axis.
+MMA_CASES = [((1, 5, 7, 21), 1, 8), ((2, 6, 9, 25), 2, 16),
+             ((1, 4, 6, 42), 24, 3), ((1, 3, 5, 50), 96, 32),
+             ((1, 3, 4, 84), 128, 64), ((1, 5, 3, 20), 48, 72),
+             ((1, 7, 6, 9), 3, 24)]
+
+
+def _bf16_inputs(cuda, shape, cin, cout, stride, seed=230):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(*shape, cin).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, 3, cin, cout)
+                          / np.sqrt(27 * cin)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).to(cuda)
+    out_shape = (shape[0],) + tuple(-(-n // stride) for n in shape[1:])
+    g = torch.from_numpy(rng.randn(*out_shape, cout).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    return x, w, b, g
+
+
+def _close(got, ref, tol):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout", MMA_CASES)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_mma_conv_and_input_grad_match_plain_on_card(cuda, shape, cin, cout,
+                                                     stride):
+    """Kernel A in bfloat16 (tensor cores): the forward with its bias and
+    the input gradient, at stride 1 and 2, against the plain versions
+    (one bf16 rounding: 1e-2 of the range), one launch each; the strided
+    input gradient never builds a zero-stuffed tensor (its parity-class
+    launch reads the gradient as it is)."""
+    from unittest import mock
+
+    from deepatlas_torch.kernels import (conv3d, conv3d_k3,
+                                         conv3d_k3_input_grad,
+                                         conv3d_k3_input_grad_plain,
+                                         conv3d_k3_plain)
+
+    x, w, b, g = _bf16_inputs(cuda, shape, cin, cout, stride)
+    before = conv3d_k3.launches
+    got = conv3d_k3(x, w, b, stride=stride)
+    torch.cuda.synchronize()
+    assert conv3d_k3.launches == before + 1
+    _close(got, conv3d_k3_plain(x, w, b, stride=stride), 1e-2)
+
+    def no_zero_tensor(grad, dhw, s):
+        assert s == 1, "the strided input gradient built a zero-stuffed one"
+        return grad
+
+    before = conv3d_k3.launches
+    with mock.patch.object(conv3d, "zero_stuffed", no_zero_tensor):
+        dx = conv3d_k3_input_grad(g, w, shape[1:], stride)
+        torch.cuda.synchronize()
+    assert conv3d_k3.launches == before + 1
+    _close(dx, conv3d_k3_input_grad_plain(g, w, shape[1:], stride), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout", MMA_CASES)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_mma_wgrad_matches_plain_on_card(cuda, shape, cin, cout, stride):
+    """Kernel D in bfloat16 (tensor cores) at stride 1 and 2 against its
+    plain version: both sum the same exact bf16 products in float32, so
+    1e-4 of the largest entry holds; one launch per call, and two runs
+    equal bit for bit (fixed-order sums, no atomics)."""
+    x, _, _, g = _bf16_inputs(cuda, shape, cin, cout, stride)
+    before = conv3d_k3_wgrad.launches
+    got = conv3d_k3_wgrad(x, g, stride)
+    again = conv3d_k3_wgrad(x, g, stride)
+    torch.cuda.synchronize()
+    assert conv3d_k3_wgrad.launches == before + 2
+    assert torch.equal(got, again)
+    _close(got, conv3d_k3_wgrad_plain(x, g, stride), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout,stride", [
+    ((1, 42, 50, 42), 128, 64, 1), ((1, 84, 100, 84), 96, 32, 1),
+    ((1, 168, 200, 168), 2, 16, 2), ((1, 84, 100, 84), 16, 32, 2)])
+def test_mma_kernels_at_full_width_on_card(cuda, shape, cin, cout, stride):
+    """The tensor-core kernels at full-width shapes of UNet_light and of
+    VoxelMorph's encoder: forward, input gradient and weight gradient
+    against the plain versions."""
+    from deepatlas_torch.kernels import (conv3d_k3, conv3d_k3_input_grad,
+                                         conv3d_k3_input_grad_plain,
+                                         conv3d_k3_plain)
+
+    x, w, b, g = _bf16_inputs(cuda, shape, cin, cout, stride)
+    _close(conv3d_k3(x, w, b, stride=stride),
+           conv3d_k3_plain(x, w, b, stride=stride), 1e-2)
+    _close(conv3d_k3_input_grad(g, w, shape[1:], stride),
+           conv3d_k3_input_grad_plain(g, w, shape[1:], stride), 1e-2)
+    _close(conv3d_k3_wgrad(x, g, stride),
+           conv3d_k3_wgrad_plain(x, g, stride), 1e-4)
+
+
+@pytest.mark.cuda
+def test_mma_wgrad_is_bit_identical_at_full_size_on_card(cuda):
+    """Two bf16 weight gradients of UNet_light's 16 -> 16 conv on the whole
+    168x200x168 volume are equal bit for bit."""
+    x, _, _, g = _bf16_inputs(cuda, (1, 168, 200, 168), 16, 16, 1)
+    first = conv3d_k3_wgrad(x, g)
+    second = conv3d_k3_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_follow_the_type_on_card(cuda, dtype):
+    """bfloat16 launches the tensor-core kernels of conv3d_mma.cu, float32
+    the CUDA-core kernels of conv3d.cu and conv3d_wgrad.cu: one launch per
+    call either way."""
+    from unittest import mock
+
+    from deepatlas_torch.kernels import conv3d, conv3d_k3
+
+    x, w, b, g = _bf16_inputs(cuda, (1, 5, 6, 20), 16, 8, 1)
+    x, g = x.to(dtype), g.to(dtype)
+    want = "mma" if dtype == torch.bfloat16 else "simt"
+    with mock.patch.object(conv3d, "_k3_mma", wraps=conv3d._k3_mma) as km, \
+            mock.patch.object(conv3d, "_k3_simt",
+                              wraps=conv3d._k3_simt) as ks, \
+            mock.patch.object(conv3d, "_wgrad_mma",
+                              wraps=conv3d._wgrad_mma) as wm, \
+            mock.patch.object(conv3d, "_wgrad_simt",
+                              wraps=conv3d._wgrad_simt) as ws:
+        conv3d_k3(x, w, b)
+        conv3d_k3_wgrad(x, g)
+        torch.cuda.synchronize()
+        seen = {"mma": (km.call_count, wm.call_count),
+                "simt": (ks.call_count, ws.call_count)}
+    assert seen[want] == (1, 1)
+    assert seen["simt" if want == "mma" else "mma"] == (0, 0)

@@ -22,7 +22,22 @@ weight gradients).  ``--device cpu`` runs the census and the calls on the
 CPU (the plain versions, host clock) for the tests: its times are no device
 numbers.  The card's ``nvidia-smi`` name and power limit head the table.
 
+With ``--before-after`` it also times, per k3 shape and on the same bf16
+inputs, in turns (tensor core, CUDA core, cuDNN, then the same in reverse,
+each time the mean of both): kernel A as the wrapper launches it in bf16
+(the tensor-core kernel of ``csrc/conv3d_mma.cu``), the CUDA-core kernel A
+of ``csrc/conv3d.cu`` called through its C entry point, and cuDNN's
+``F.conv3d`` (a yardstick only: the port never calls it); then the same
+three for kernel D (``conv3d_k3_wgrad``, ``csrc/conv3d_wgrad.cu``,
+``torch.nn.grad.conv3d_weight``) at UNet_light's weight-gradient shapes
+(each k3 conv's input and an upstream gradient of its output's shape).
+The tensor-core results are held against the CUDA-core ones (A within one
+bf16 rounding, 1e-2 of the range; D within 1e-4, both sum exact bf16
+products in float32); a mismatch fails the run.  On the CPU the CUDA-core
+column is empty.
+
   python tools/bench_packed_conv_torch.py [--iters 10] [--step-ms 152.3]
+      [--before-after]
   python tools/bench_packed_conv_torch.py --device cpu --size 8 16 24 \\
       --n-classes 4 --iters 1
 """
@@ -38,7 +53,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from chip_smoke import HBM_BYTES_PER_S, PEAK_FLOPS, cuda_ms, nvidia_smi
+from chip_smoke import (HBM_BYTES_PER_S, PEAK_FLOPS, TOL, bound_ms, cuda_ms,
+                        library_call, nvidia_smi)
 
 PEAK = PEAK_FLOPS["bfloat16"]
 
@@ -146,10 +162,101 @@ def inputs(kind, x_shape, w_shape, device, gen):
     return x, w
 
 
+def in_turns(fns, ms_of, iters):
+    """ms per call of each of ``fns`` (None: not timed), timed in the order
+    given and then in reverse, each the mean of its two readings."""
+    first = [None if f is None else ms_of(f, iters) for f in fns]
+    second = [None if f is None else ms_of(f, iters)
+              for f in reversed(fns)][::-1]
+    return [None if a is None else (a + b) / 2 for a, b in zip(first, second)]
+
+
+def _fmt(ms):
+    return f"{'-':>8}" if ms is None else f"{ms:8.3f}"
+
+
+def before_after(uniq, device, ms_of, iters, gen, made):
+    """Kernels A and D in bf16 per k3 shape: the tensor-core kernel (through
+    its wrapper, counted in ``made``), the CUDA-core kernel (through its C
+    entry point; on the card only) and cuDNN, timed in turns and held
+    against each other.  Returns ``{"conv3d_k3": rows, "conv3d_k3_wgrad":
+    rows, "totals"}``, totals weighted by calls per forward (every k3 conv
+    of a training step has one weight gradient)."""
+    import torch
+
+    from deepatlas_torch.kernels import conv3d, conv3d_k3, conv3d_k3_wgrad
+
+    on_card = device.type == "cuda"
+    made["conv3d_k3_wgrad"] = 0
+    out = {"conv3d_k3": [], "conv3d_k3_wgrad": []}
+    print(f"before/after, bf16, ms per call: tensor core (wrapper) | CUDA "
+          f"core (C entry point) | cuDNN | bound", flush=True)
+    for (kind, xs, ws, kwt), n in uniq.items():
+        if kind != "conv3d_k3":
+            continue
+        x, w = inputs(kind, xs, ws, device, gen)
+        wk = w.to(torch.bfloat16).float()
+        g = (torch.rand(xs[:4] + (ws[-1],), generator=gen, device=device)
+             * 2 - 1).to(torch.bfloat16)
+        nvox, cin, cout = int(np.prod(xs[:4])), ws[-2], ws[-1]
+
+        def fwd(x=x, w=w):
+            made["conv3d_k3"] += 1
+            return conv3d_k3(x, w)
+
+        def wgrad(x=x, g=g):
+            made["conv3d_k3_wgrad"] += 1
+            return conv3d_k3_wgrad(x, g)
+
+        for name, tc, simt, lib, tol in (
+                ("conv3d_k3", fwd,
+                 lambda x=x, wk=wk: conv3d._k3_simt(x, wk, None),
+                 library_call("conv3d_k3", x, w), TOL["bfloat16"]),
+                ("conv3d_k3_wgrad", wgrad,
+                 lambda x=x, g=g: conv3d._wgrad_simt(x, g),
+                 library_call("conv3d_k3_wgrad", x, g), TOL["float32"])):
+            err = None
+            if on_card:
+                a, b = tc().float(), simt().float()
+                err = (a - b).abs().max().item()
+                if not err <= tol * b.abs().max().item():
+                    raise AssertionError(
+                        f"{name} {xs} -> {cout}: tensor core and CUDA core "
+                        f"differ by {err} > {tol} * {b.abs().max().item()}")
+                del a, b
+            tc_ms, simt_ms, lib_ms = in_turns(
+                [tc, simt if on_card else None, lib], ms_of, iters)
+            bms, by = bound_ms(name, nvox, cin, cout, "bfloat16")
+            out[name].append({"x": list(xs), "cin": cin, "cout": cout,
+                              "n": n, "tensor_core_ms": tc_ms,
+                              "cuda_core_ms": simt_ms, "library_ms": lib_ms,
+                              "bound_ms": bms, "bound_by": by,
+                              "max_abs_diff_tc_vs_cuda_core": err})
+            print(f"{name:15} {str(xs):>24} {f'{cin}->{cout}':>7} {n:>2} | "
+                  f"{_fmt(tc_ms)} | {_fmt(simt_ms)} | {_fmt(lib_ms)} | "
+                  f"{bms:7.4f}", flush=True)
+        del x, w, wk, g
+    totals = {}
+    for name, rows in out.items():
+        totals[name] = {
+            key: (None if any(r[key] is None for r in rows)
+                  else sum(r["n"] * r[key] for r in rows))
+            for key in ("tensor_core_ms", "cuda_core_ms", "library_ms",
+                        "bound_ms")}
+        t = totals[name]
+        print(f"{name:15} {'total':>24} {'':>7} "
+              f"{sum(r['n'] for r in rows):>2} | {_fmt(t['tensor_core_ms'])} "
+              f"| {_fmt(t['cuda_core_ms'])} | {_fmt(t['library_ms'])} | "
+              f"{t['bound_ms']:7.4f}", flush=True)
+    out["totals"] = totals
+    return out
+
+
 def main(argv=None):
     """Print the table; return ``{"device", "rows", "calls", "fwd_flops",
-    "fwd_ms", "fwd_bound_ms"}`` where ``calls`` counts the wrapper calls
-    made here per kernel (each one launch on the card)."""
+    "fwd_ms", "fwd_bound_ms"}`` (and ``"before_after"`` with
+    ``--before-after``) where ``calls`` counts the wrapper calls made here
+    per kernel (each one launch on the card)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, nargs=3, default=[168, 200, 168])
     ap.add_argument("--n-classes", type=int, default=32)
@@ -159,6 +266,9 @@ def main(argv=None):
                     help="measured seg step ms (tools/"
                          "profile_seg_step_torch.py) for the peak share")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--before-after", action="store_true",
+                    help="also time kernels A and D in bf16 on the tensor "
+                         "cores, on the CUDA cores and in cuDNN, per shape")
     args = ap.parse_args(argv)
 
     import torch
@@ -214,9 +324,14 @@ def main(argv=None):
         print(f"seg step share of the bf16 peak (3 x forward conv flops / "
               f"{args.step_ms} ms / {PEAK / 1e12:.0f} TF/s): {share:.2f}%",
               flush=True)
-    return {"device": device.type, "rows": rows, "calls": made,
-            "fwd_flops": fwd_flops, "fwd_ms": fwd_ms,
-            "fwd_bound_ms": fwd_bound}
+    result = {"device": device.type, "rows": rows, "calls": made,
+              "fwd_flops": fwd_flops, "fwd_ms": fwd_ms,
+              "fwd_bound_ms": fwd_bound}
+    if args.before_after:
+        with torch.no_grad():
+            result["before_after"] = before_after(uniq, device, ms_of,
+                                                  args.iters, gen, made)
+    return result
 
 
 if __name__ == "__main__":
