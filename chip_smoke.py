@@ -7,14 +7,19 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
   1. device  -- card name, ``nvidia-smi`` name and power limit; TF32 off for
      every float32 reference.
   2. build   -- compile the CUDA sources of deepatlas_torch/kernels/csrc
-     (the ``ptxas`` report of every kernel logged).
+     (the ``ptxas`` report of every kernel logged, and per source the most
+     registers a kernel uses and its spill bytes).
   3. kernels -- each kernel against its plain PyTorch version at every
      shape the four main paths launch it at, in float32 and bfloat16, with
      kernel / plain / library (cuDNN) times from CUDA events and the least
-     time the card could take (``bound_ms``).  The k3 conv and its weight
+     time the card could take (``bound_ms``), and the kernel's and the
+     library call's queued (device) times.  The k3 conv and its weight
      gradient run on the tensor cores in bfloat16 (``csrc/conv3d_mma.cu``)
      and on the CUDA cores in float32 (``csrc/conv3d.cu``,
-     ``csrc/conv3d_wgrad.cu``); every bfloat16 weight gradient is computed
+     ``csrc/conv3d_wgrad.cu``), the transposed conv and the 1x1x1 conv on
+     the tensor cores in bfloat16 (``csrc/channel_mix_mma.cu``) and on the
+     CUDA cores in float32 (``csrc/deconv3d.cu``, ``csrc/conv3d.cu``);
+     every weight gradient, transposed conv and 1x1x1 conv is computed
      twice and the two must be equal bit for bit.  Serving: the UNet_light tile
      forward (batch 4 of 128^3 tiles).  Training: one step on a 168x200x168
      volume with 32 classes -- the forward convs, kernel A again at its 13
@@ -112,8 +117,8 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      first pair at the corpus's intensity and at three times it.
   8. convs   -- the conv tools: ``tools/bench_packed_conv_torch.py
      --before-after`` (the per-shape roofline of kernels A, B and C on
-     UNet_light's forward at 168x200x168, then A and D in bf16 per shape on
-     the tensor cores, on the CUDA cores and in cuDNN, in turns) and
+     UNet_light's forward at 168x200x168, then A, D, C and B in bf16 per
+     shape on the tensor cores, on the CUDA cores and in cuDNN, in turns) and
      ``tools/bench_block_conv_torch.py`` (kernel K at p_blk
      2, 4 and 8 against kernel A, cuDNN beside), ``--iters 3`` each, with
      their rows logged; each kernel must launch exactly as often as the
@@ -149,9 +154,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_INFO = {
     "conv3d_k3": ("deepatlas_torch/kernels/csrc/conv3d_mma.cu",
                   "deepatlas_tpu/pallas/conv3d.py:170"),
-    "deconv2x": ("deepatlas_torch/kernels/csrc/deconv3d.cu",
+    "deconv2x": ("deepatlas_torch/kernels/csrc/channel_mix_mma.cu",
                  "deepatlas_tpu/pallas/deconv3d.py:55"),
-    "conv3d_point": ("deepatlas_torch/kernels/csrc/conv3d.cu",
+    "conv3d_point": ("deepatlas_torch/kernels/csrc/channel_mix_mma.cu",
                      "deepatlas_tpu/pallas/conv3d.py:215"),
     "conv3d_k3_wgrad": ("deepatlas_torch/kernels/csrc/conv3d_mma.cu",
                         "deepatlas_tpu/pallas/conv3d.py:359"),
@@ -178,7 +183,15 @@ SOURCES_BY_DTYPE = {
     "conv3d_k3_wgrad": {
         "bfloat16": "deepatlas_torch/kernels/csrc/conv3d_mma.cu",
         "float32": "deepatlas_torch/kernels/csrc/conv3d_wgrad.cu"},
+    "deconv2x": {
+        "bfloat16": "deepatlas_torch/kernels/csrc/channel_mix_mma.cu",
+        "float32": "deepatlas_torch/kernels/csrc/deconv3d.cu"},
+    "conv3d_point": {
+        "bfloat16": "deepatlas_torch/kernels/csrc/channel_mix_mma.cu",
+        "float32": "deepatlas_torch/kernels/csrc/conv3d.cu"},
 }
+# kernels without atomics whose reruns must be equal bit for bit
+DETERMINISTIC = ("conv3d_k3_wgrad", "deconv2x", "conv3d_point")
 PATHS = ("serving", "training", "registration", "joint")
 
 # relative tolerances max|kernel - plain| / max|plain|: float32 differs
@@ -358,6 +371,18 @@ def log(obj):
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_summary(text):
+    """The most registers a kernel of one source uses, and its spill bytes
+    (stores + loads), from ``ptxas -v``'s report."""
+    import re
+
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0),
+            "spill_bytes": sum(spills)}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -452,6 +477,17 @@ def voxelmorph_cases(path, batch, dhw):
     return cases
 
 
+# the kernels that check_kernels times at every shape of the paths, with
+# their queued times (device_ms, library_device_ms) beside the event times
+KERNEL_SHAPES = ("conv3d_k3", "deconv2x", "conv3d_point", "conv3d_k3_wgrad")
+DEVICE_TIMES = ("device_ms", "library_device_ms")
+# the kernels whose bfloat16 calls took the CUDA-core kernel of
+# csrc/channel_mix.cuh before the tensor-core one: that kernel, through its
+# C entry point, is timed beside it at every shape
+CUDA_CORE_TWINS = ("deconv2x", "conv3d_point")
+CUDA_CORE_TIMES = ("cuda_core_ms", "cuda_core_device_ms")
+
+
 def all_cases():
     cases = unet_cases("serving", TILE_BATCH, (TILE,) * 3, N_CLASSES, False)
     cases.update(unet_cases("training", 1, TRAIN_SHAPE, TRAIN_CLASSES, True))
@@ -487,13 +523,28 @@ def bound_ms(kernel, n, cin, cout, dtype_name, n_out=None, role=""):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def cuda_ms(fn, reps, warmup=1):
+# the spin that holds the stream while the host enqueues a queued timing's
+# calls: ~28 ms at the H100's 1.755 GHz boost clock, far above the host's
+# ~0.1-0.2 ms per wrapper call
+QUEUE_CYCLES = 50_000_000
+
+
+def cuda_ms(fn, reps, warmup=1, queued=False):
+    """ms per call of ``fn``: CUDA events around ``reps`` calls after
+    ``warmup``.  Where the host takes longer to issue a call than the card
+    to run it (small shapes), this time is the host's.  With ``queued`` a
+    spin kernel (``torch.cuda._sleep``) first holds the stream while the
+    host enqueues all the calls, so the events time the card's work alone:
+    the device time of the call."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -548,16 +599,29 @@ def unit_counts(path, role, per_unit):
 def check_kernels(seed):
     """Phase 3, convolutions: each against its plain version at every shape
     of the three paths in both types.  Returns ``{kernel: {"max_abs_err",
-    path: {ms, plain_ms, library_ms, bound_ms, flops, bytes}}}`` with the
+    path: {ms, plain_ms, library_ms, bound_ms, flops, bytes, device_ms,
+    library_device_ms, cuda_core_ms, cuda_core_device_ms}}}`` with the
     bfloat16 totals of one unit of each path (a tile batch; a training
-    step); the warp kernels' entries are filled by ``check_warp_kernels``."""
+    step); the warp kernels' entries are filled by ``check_warp_kernels``.
+    ``device_ms`` and ``library_device_ms`` are the kernel's and the
+    library call's queued times (``cuda_ms(queued=True)``): the card's work
+    without the host's launch overhead, which the event times of the
+    smaller shapes hold; ``cuda_core_*`` the same for the CUDA-core kernel
+    of ``CUDA_CORE_TWINS``.  The kernels without atomics
+    (``DETERMINISTIC``) run twice and must give the same bits."""
     import torch
 
-    from deepatlas_torch.kernels import (KERNELS, conv3d_k3_input_grad,
-                                         conv3d_k3_input_grad_plain)
+    from deepatlas_torch.kernels import (KERNELS, conv3d,
+                                         conv3d_k3_input_grad,
+                                         conv3d_k3_input_grad_plain, deconv3d)
+    from deepatlas_torch.kernels.conv3d import kernel_operands
+
+    simt_of = {"deconv2x": deconv3d._deconv_simt,
+               "conv3d_point": conv3d._point_simt}
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "flops", "bytes")
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "flops", "bytes",
+            *DEVICE_TIMES, *CUDA_CORE_TIMES)
     summary = {name: dict({path: dict.fromkeys(keys, 0.0) for path in PATHS},
                           max_abs_err=0.0)
                for name in KERNELS}
@@ -612,18 +676,31 @@ def check_kernels(seed):
             # in both types (bf16 products are exact in float32)
             tol = TOL["float32"] if name == "conv3d_k3_wgrad" else TOL[dname]
             ok = bool(np.isfinite(err)) and err <= tol * scale
-            # the weight gradient's fixed-order sums: the same bits again
+            # no atomics (the weight gradient's fixed-order sums, the
+            # channel mix's per-voxel sums): the same bits again
             repeatable = None
-            if name == "conv3d_k3_wgrad":
+            if name in DETERMINISTIC:
                 repeatable = bool(torch.equal(got, fn(*args, **kw)))
                 ok = ok and repeatable
             del got, ref
             ms = cuda_ms(lambda: fn(*timed_args, **kw), reps=3 if big else 5)
             plain_ms = cuda_ms(lambda: plain(*timed_args, **kw),
                                reps=1 if big else 2, warmup=0 if big else 1)
-            lib_ms = cuda_ms(library_call(name, x, second, stride,
-                                          size if role == "dx_s2" else None),
-                             reps=3 if big else 5)
+            lib = library_call(name, x, second, stride,
+                               size if role == "dx_s2" else None)
+            lib_ms = cuda_ms(lib, reps=3 if big else 5)
+            dev_ms = cuda_ms(lambda: fn(*timed_args, **kw),
+                             reps=3 if big else 5, queued=True)
+            lib_dev_ms = cuda_ms(lib, reps=3 if big else 5, queued=True)
+            # the bfloat16 channel mix's earlier kernel, on the CUDA cores
+            # through its C entry point, on the same inputs
+            simt = simt_ms = simt_dev_ms = None
+            if name in CUDA_CORE_TWINS and dname == "bfloat16":
+                simt = functools.partial(simt_of[name], x,
+                                         kernel_operands(x, second, None)[0],
+                                         None)
+                simt_ms = cuda_ms(simt, reps=5)
+                simt_dev_ms = cuda_ms(simt, reps=5, queued=True)
             bms, bound_by = bound_ms(name, n, cin, cout, dname, n_out, role)
             log({"phase": "kernels", "path": path, "kernel": name,
                  "role": role, "dtype": dname, "x": list(x.shape),
@@ -633,6 +710,8 @@ def check_kernels(seed):
                  "rel_tol": tol, "bit_identical_rerun": repeatable,
                  "ok": ok, "kernel_ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "kernel_device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                 "cuda_core_ms": simt_ms, "cuda_core_device_ms": simt_dev_ms,
                  "bound_ms": bms, "bound_by": bound_by})
             if not ok:
                 raise AssertionError(f"{name} {role} {dname} "
@@ -648,9 +727,14 @@ def check_kernels(seed):
                     for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                      ("library_ms", lib_ms),
                                      ("bound_ms", bms), ("flops", flops),
-                                     ("bytes", nbytes)):
+                                     ("bytes", nbytes),
+                                     ("device_ms", dev_ms),
+                                     ("library_device_ms", lib_dev_ms),
+                                     ("cuda_core_ms", simt_ms or 0.0),
+                                     ("cuda_core_device_ms",
+                                      simt_dev_ms or 0.0)):
                         tot[key] += times * val
-            del x, second, args, timed_args
+            del x, second, args, timed_args, lib, simt
     torch.cuda.empty_cache()
     return summary
 
@@ -2551,7 +2635,9 @@ def main(argv=None):
              for ln in log_text.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     log({"phase": "build", "seconds": time.perf_counter() - t0,
-         "per_source_s": seconds, "ptxas": ptxas})
+         "per_source_s": seconds, "ptxas": ptxas,
+         "per_source": {name: ptxas_summary(text)
+                        for name, text in build.build_logs.items()}})
 
     with torch.no_grad():
         summary = check_kernels(args.seed)
@@ -2585,13 +2671,16 @@ def main(argv=None):
                     if name in SOURCES_BY_DTYPE else {}),
                  "launches": sum(launches[path][name] for path in PATHS),
                  "max_abs_err": s["max_abs_err"]}
-        for key in times:
+        # the convolutions' queued (device) times beside the event times
+        keys = times + (DEVICE_TIMES if name in KERNEL_SHAPES else ()) \
+            + (CUDA_CORE_TIMES if name in CUDA_CORE_TWINS else ())
+        for key in keys:
             entry[key] = sum(s[path][key] for path in PATHS)
         entry["bound_by"] = "operations" \
             if flops / PEAK_FLOPS["bfloat16"] >= nbytes / HBM_BYTES_PER_S \
             else "bytes"
         for path in PATHS:
-            entry[path] = dict({k: s[path][k] for k in times},
+            entry[path] = dict({k: s[path][k] for k in keys},
                                launches=launches[path][name])
         on_a_path = any(per[name] for per in step_tables)
         if on_a_path and entry["launches"] == 0:
@@ -2627,7 +2716,15 @@ def main(argv=None):
                  "UNet_light at 168x200x168 in bfloat16 (ms at its default "
                  "p_blk 4, and per p_blk and shape), timed by the block-conv "
                  "microbench in the convs phase, whose launches it counts "
-                 "apart"})
+                 "apart. device_ms and library_device_ms (the convolutions) "
+                 "are the kernel's and the library call's queued times: the "
+                 "stream held by a spin kernel while the host enqueues the "
+                 "calls, so that they time the card's work without the "
+                 "host's launch overhead, which ms and library_ms hold at "
+                 "the smaller shapes. cuda_core_ms and cuda_core_device_ms "
+                 "(deconv2x, conv3d_point) time the same bfloat16 calls on "
+                 "the CUDA-core kernel of channel_mix.cuh, which they took "
+                 "before the tensor-core kernel"})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

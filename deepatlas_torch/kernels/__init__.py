@@ -16,7 +16,7 @@ from .conv3d import (conv3d_k3, conv3d_k3_block, conv3d_k3_block_plain,
                      conv3d_k3_input_grad, conv3d_k3_input_grad_plain,
                      conv3d_k3_plain, conv3d_k3_wgrad, conv3d_k3_wgrad_plain,
                      conv3d_point, conv3d_point_plain, pack_k3_weights,
-                     parity_tap_table)
+                     pack_mix_weights, parity_tap_table)
 from .deconv3d import deconv2x, deconv2x_plain, nearest_up2x
 from .warp import (grid_sample, splat_trilinear, splat_trilinear_plain,
                    warp_grid_grad, warp_grid_grad_plain, warp_trilinear,
@@ -61,7 +61,7 @@ __all__ = ["KERNELS", "binned_sum", "conv3d_k3", "conv3d_k3_block",
            "hard_anatomy_dice", "launch_counts", "matched_grid_grad",
            "matched_grid_grad_plain", "matched_warp", "matched_warp_fused",
            "matched_warp_fused_plain", "matched_warp_plain", "nearest_up2x",
-           "pack_k3_weights", "parity_tap_table", "reset_launch_counts",
-           "splat_trilinear", "splat_trilinear_plain",
+           "pack_k3_weights", "pack_mix_weights", "parity_tap_table",
+           "reset_launch_counts", "splat_trilinear", "splat_trilinear_plain",
            "warp_grid_grad", "warp_grid_grad_plain", "warp_lncc_loss",
            "warp_trilinear", "warp_trilinear_plain"]

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("conv3d", "conv3d_block", "conv3d_wgrad", "conv3d_mma", "deconv3d",
-           "warp", "anatomy")
+           "channel_mix_mma", "warp", "anatomy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

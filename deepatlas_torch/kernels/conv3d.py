@@ -18,16 +18,18 @@ flops per voxel against ``2*(Cin+Cout)`` bytes in bf16, far above the card's
 conv (16 -> n_classes on the U-Net head) is bound by bytes.  The CUDA
 designs and what they do about each bound are described in
 ``csrc/conv3d_mma.cu``, ``csrc/conv3d.cu``, ``csrc/conv3d_block.cu``,
-``csrc/conv3d_wgrad.cu`` and ``csrc/channel_mix.cuh``.
+``csrc/conv3d_wgrad.cu``, ``csrc/channel_mix_mma.cu`` and
+``csrc/channel_mix.cuh``.
 
-Each wrapper dispatches on the input's device, and the k3 conv and its
-weight gradient on a CUDA tensor's type too: a CPU tensor goes to the plain
-PyTorch version beside it; a bfloat16 CUDA tensor to the tensor-core kernels
-of ``csrc/conv3d_mma.cu`` (``mma.sync``, as the TPU kernels compute on the
-MXU in bf16 with float32 sums); a float32 CUDA tensor to the CUDA-core
-kernels of ``csrc/conv3d.cu`` and ``csrc/conv3d_wgrad.cu``.  A kernel that
-cannot launch raises: there is no fallback.  ``<wrapper>.launches`` counts
-kernel launches.
+Each wrapper dispatches on the input's device, and on a CUDA tensor's type
+too: a CPU tensor goes to the plain PyTorch version beside it; a bfloat16
+CUDA tensor to the tensor-core kernels (``mma.sync``, as the TPU kernels
+compute on the MXU in bf16 with float32 sums) of ``csrc/conv3d_mma.cu`` (the
+k3 conv and its weight gradient) and ``csrc/channel_mix_mma.cu`` (the 1x1x1
+conv); a float32 CUDA tensor to the CUDA-core kernels of ``csrc/conv3d.cu``
+(the k3 conv; the 1x1x1 conv through ``csrc/channel_mix.cuh``) and
+``csrc/conv3d_wgrad.cu``.  A kernel that cannot launch raises: there is no
+fallback.  ``<wrapper>.launches`` counts kernel launches.
 
 Gradients: ``conv3d_k3`` and ``conv3d_point`` are ``torch.autograd.Function``s
 whose backward follows the JAX package's ``custom_vjp``s.  For the k3 conv
@@ -86,6 +88,11 @@ _MMA_SIGNATURES = {
                             ctypes.POINTER(ctypes.c_int), _P],
     "conv3d_k3_wgrad_mma_chunks": [_I, _I, _I, _I, _I, _I, _I],
     "conv3d_k3_wgrad_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+# csrc/channel_mix_mma.cu, shared with kernels/deconv3d.py
+_MIX_SIGNATURES = {
+    "conv3d_point_mma": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    "deconv2x_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -203,6 +210,26 @@ def pack_k3_weights(wk: torch.Tensor) -> torch.Tensor:
     packed = F.pad(wk.detach().to(torch.bfloat16),
                    (0, npad - cout, 0, cp - cin)).reshape(rows, npad)
     return F.pad(packed, (0, 0, 0, -(-rows // 16) * 16 - rows)).contiguous()
+
+
+def pack_mix_weights(wk: torch.Tensor) -> torch.Tensor:
+    """Channel-mix weights ``(*taps, Cin, Cout)`` -- ``(Cin, Cout)`` for the
+    1x1x1 conv, ``(2, 2, 2, Cin, Cout)`` for the transposed conv -- in the
+    layout of ``csrc/channel_mix_mma.cu``: a bfloat16 ``(K_pad, TAPS * NP)``
+    matrix whose row ``ci`` holds, at columns ``t * NP + co``, ``w[t, ci,
+    co]`` of tap ``t`` (``t = a*4 + p*2 + q`` for the transposed conv), with
+    ``NP = ceil(Cout / 8) * 8`` columns per tap and the rows padded to
+    ``K_pad = ceil(Cin / 16) * 16`` (the depth of one ``mma``), all padding
+    zero.  Values are rounded to bfloat16 (exact for weights that
+    ``kernel_operands`` rounded)."""
+    cin, cout = wk.shape[-2:]
+    taps = wk.detach().reshape(-1, cin, cout)
+    kp, npad = -(-int(cin) // 16) * 16, _round8(cout)
+    make = torch.zeros if (kp, npad) != (cin, cout) else torch.empty
+    packed = make((kp, taps.shape[0], npad), dtype=torch.bfloat16,
+                  device=wk.device)
+    packed[:cin, :, :cout] = taps.transpose(0, 1)
+    return packed.view(kp, -1)
 
 
 def _k3_simt(x, wk, bk, stride=1):
@@ -630,7 +657,10 @@ def _point_math(x, wk, bk):
     return out.to(x.dtype)
 
 
-def _point_cuda(x, wk, bk):
+def _point_simt(x, wk, bk):
+    """Kernel B on the CUDA cores (``csrc/conv3d.cu`` through
+    ``csrc/channel_mix.cuh``), float32 weights; takes either type (the
+    float32 path's kernel)."""
     cout = wk.shape[-1]
     y = torch.empty(x.shape[:-1] + (cout,), dtype=x.dtype, device=x.device)
     lib = build.load("conv3d", _SIGNATURES)
@@ -640,6 +670,27 @@ def _point_cuda(x, wk, bk):
                               _ptr(bk), y.data_ptr(), x.numel() // x.shape[-1],
                               x.shape[-1], cout, stream)
     build.check(rc, "conv3d_point")
+    return y
+
+
+def _point_mma(x, wk, bk):
+    """Kernel B on the tensor cores (``csrc/channel_mix_mma.cu``),
+    bfloat16."""
+    cout = wk.shape[-1]
+    wpk = pack_mix_weights(wk)
+    y = torch.empty(x.shape[:-1] + (cout,), dtype=x.dtype, device=x.device)
+    lib = build.load("channel_mix_mma", _MIX_SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3d_point_mma(x.data_ptr(), wpk.data_ptr(), _ptr(bk),
+                                  y.data_ptr(), x.numel() // x.shape[-1],
+                                  x.shape[-1], cout, stream)
+    build.check(rc, "conv3d_point")
+    return y
+
+
+def _point_cuda(x, wk, bk):
+    y = (_point_mma if x.dtype == torch.bfloat16 else _point_simt)(x, wk, bk)
     conv3d_point.launches += 1
     return y
 

@@ -70,61 +70,11 @@
 // All take bf16 tensors and write the output in bf16 (the conv, after a
 // float32 bias) or float32 (dW).  Every entry point returns
 // cudaGetLastError() of its launches.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-// ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes where !pred (src unread)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1,
-                                          uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 products, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace da;
 
 // B fragments of NT n-tiles for one k-chunk from a k-major (row = k, N
 // contiguous) bf16 matrix in shared memory; `base` (bytes) is the chunk's
@@ -152,18 +102,6 @@ __device__ __forceinline__ int b_lane_offset(int lane, int ld) {
   const int row = (i & 1) * 8 + (lane & 7);
   const int col = NT == 1 ? 0 : (i >> 1) * 8;
   return (row * ld + col) * 2;
-}
-
-// 8 channels of one voxel, scalar loads with zeros past `n` valid channels
-__device__ __forceinline__ uint4 load8_scalar(const bf16* src, int n) {
-  union {
-    uint4 u;
-    unsigned short h[8];
-  } v;
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    v.h[c] = c < n ? __bfloat16_as_ushort(src[c]) : (unsigned short)0;
-  return v.u;
 }
 
 // Shared-memory slot of halo column hx: at stride 2 the even columns come

@@ -8,12 +8,16 @@ Kernel == stride, so there is no output overlap::
 
 with ``w`` in the packed ``(2, 2, 2, Cin, Cout)`` (I, O) layout.  Bound by
 bytes on an H100: 16*Cin*Cout flops per input voxel against the 8*Cout
-output values it writes.  The CUDA design is described in
-``csrc/deconv3d.cu`` and ``csrc/channel_mix.cuh``.
+output values it writes.  The CUDA designs are described in
+``csrc/channel_mix_mma.cu`` (bfloat16, tensor cores), ``csrc/deconv3d.cu``
+and ``csrc/channel_mix.cuh`` (float32, CUDA cores).
 
-The wrapper dispatches on the input's device only (CPU: the plain version;
-CUDA: the kernel, or it raises); ``deconv2x.launches`` counts launches.
-Types as in ``kernels/conv3d.py``.
+The wrapper dispatches on the input's device and type: a CPU tensor goes to
+the plain version, a bfloat16 CUDA tensor (every main path) to the
+tensor-core kernel of ``csrc/channel_mix_mma.cu``, a float32 one to the
+CUDA-core kernel of ``csrc/deconv3d.cu``; a kernel that cannot launch
+raises.  ``deconv2x.launches`` counts launches.  Types as in
+``kernels/conv3d.py``.
 
 Gradient: ``deconv2x`` is a ``torch.autograd.Function``.  Its backward
 regroups the upstream gradient to ``(voxels, 8*Cout)``, one row per input
@@ -29,8 +33,9 @@ from typing import Optional
 import torch
 
 from . import build
-from .conv3d import (_DTYPES, _ptr, bias_grad, check_operands,
-                     kernel_operands, upstream, voxel_product)
+from .conv3d import (_DTYPES, _MIX_SIGNATURES, _ptr, bias_grad,
+                     check_operands, kernel_operands, pack_mix_weights,
+                     upstream, voxel_product)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -50,7 +55,9 @@ def _deconv_math(x, wk, bk):
     return y.to(x.dtype)
 
 
-def _deconv_cuda(x, wk, bk):
+def _deconv_simt(x, wk, bk):
+    """Kernel C on the CUDA cores (``csrc/deconv3d.cu``), float32 weights;
+    takes either type (the float32 path's kernel)."""
     b, d, h, wd, cin = x.shape
     cout = wk.shape[-1]
     y = torch.empty(b, 2 * d, 2 * h, 2 * wd, cout, dtype=x.dtype,
@@ -62,6 +69,29 @@ def _deconv_cuda(x, wk, bk):
                           _ptr(bk), y.data_ptr(), b, d, h, wd, cin, cout,
                           stream)
     build.check(rc, "deconv2x")
+    return y
+
+
+def _deconv_mma(x, wk, bk):
+    """Kernel C on the tensor cores (``csrc/channel_mix_mma.cu``),
+    bfloat16."""
+    b, d, h, wd, cin = x.shape
+    cout = wk.shape[-1]
+    wpk = pack_mix_weights(wk)
+    y = torch.empty(b, 2 * d, 2 * h, 2 * wd, cout, dtype=x.dtype,
+                    device=x.device)
+    lib = build.load("channel_mix_mma", _MIX_SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.deconv2x_mma(x.data_ptr(), wpk.data_ptr(), _ptr(bk),
+                              y.data_ptr(), b, d, h, wd, cin, cout, stream)
+    build.check(rc, "deconv2x")
+    return y
+
+
+def _deconv_cuda(x, wk, bk):
+    y = (_deconv_mma if x.dtype == torch.bfloat16 else _deconv_simt)(x, wk,
+                                                                     bk)
     deconv2x.launches += 1
     return y
 

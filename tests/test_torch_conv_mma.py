@@ -285,8 +285,9 @@ def test_input_grad_rejects_bad_operands():
 
 def test_roofline_tool_before_after_on_cpu(capsys):
     """``tools/bench_packed_conv_torch.py --before-after`` on the CPU: per
-    k3 shape the wrapper and cuDNN's yardstick timed in turns (the CUDA-core
-    column is empty off the card), A and D, with totals."""
+    k3 shape (A and D) and per transposed-conv (C) and 1x1x1 (B) shape the
+    wrapper and cuDNN's yardstick timed in turns (the CUDA-core column and
+    the queued times are empty off the card), with totals."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
     import bench_packed_conv_torch
 
@@ -301,8 +302,16 @@ def test_roofline_tool_before_after_on_cpu(capsys):
                    and r["library_ms"] > 0 and r["bound_ms"] > 0
                    for r in rows)
         assert ba["totals"][name]["cuda_core_ms"] is None
-    # the roofline's 13 shapes (one warm-up and one call each), then per
-    # shape the wrapper twice more for A and for D (in turns, one call each)
-    assert out["calls"] == {"conv3d_k3": 26 + 13 * 4, "conv3d_point": 2,
-                            "deconv2x": 6, "conv3d_k3_wgrad": 13 * 4}
+    for name, n_shapes in (("deconv2x", 3), ("conv3d_point", 1)):
+        rows = ba[name]
+        assert len(rows) == n_shapes and sum(r["n"] for r in rows) == n_shapes
+        assert all(r["cuda_core_ms"] is None and r["tensor_core_ms"] > 0
+                   and r["library_ms"] > 0 and r["bound_ms"] > 0
+                   and r["tensor_core_device_ms"] is None for r in rows)
+    # the roofline's 13 k3, 3 transposed-conv and 1 1x1x1 shapes (one
+    # warm-up and one call each), then per shape the wrapper twice more for
+    # A, D, C and B (in turns, a warm-up and one call each time)
+    assert out["calls"] == {"conv3d_k3": 26 + 13 * 4,
+                            "conv3d_point": 2 + 4, "deconv2x": 6 + 3 * 4,
+                            "conv3d_k3_wgrad": 13 * 4}
     assert "before/after" in capsys.readouterr().out

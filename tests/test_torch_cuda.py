@@ -739,3 +739,100 @@ def test_conv_kernels_follow_the_type_on_card(cuda, dtype):
                 "simt": (ks.call_count, ws.call_count)}
     assert seen[want] == (1, 1)
     assert seen["simt" if want == "mma" else "mma"] == (0, 0)
+
+
+# Kernels C and B in bfloat16 (csrc/channel_mix_mma.cu): every shape the
+# main paths launch them at -- UNet_light's decoder upsamples and head (and
+# the head's input gradient) on a 168x200x168 volume and on a serving batch
+# of 4 x 128^3 tiles, VoxelMorph's identity-bank upsample -- and small odd
+# shapes with every narrow and wide channel count.
+MIX_MAIN_SHAPES = [
+    ("deconv2x", (1, 21, 25, 21), 64, 64),
+    ("deconv2x", (1, 42, 50, 42), 64, 64),
+    ("deconv2x", (1, 84, 100, 84), 32, 32),
+    ("deconv2x", (4, 16, 16, 16), 64, 64),
+    ("deconv2x", (4, 32, 32, 32), 64, 64),
+    ("deconv2x", (4, 64, 64, 64), 32, 32),
+    ("deconv2x", (1, 84, 100, 84), 8, 8),
+    ("conv3d_point", (1, 168, 200, 168), 16, 32),
+    ("conv3d_point", (1, 168, 200, 168), 32, 16),
+    ("conv3d_point", (4, 128, 128, 128), 16, 5)]
+MIX_ODD = [(cin, cout) for cin in (1, 3, 8, 16, 32, 48, 64)
+           for cout in (1, 5, 8, 16, 32, 64)] + [(16, 72), (8, 136), (96, 72)]
+
+
+def _mix_check(cuda, name, shape, cin, cout):
+    """One bf16 launch with a bias against the plain version (one bf16
+    rounding: 1e-2 of the range), and a rerun equal bit for bit (each
+    output is one voxel's fixed-order sum, no atomics)."""
+    fn, plain = KERNELS[name]
+    rng = np.random.RandomState(230)
+    lead = (2, 2, 2) if name == "deconv2x" else ()
+    x = torch.from_numpy(rng.randn(*shape, cin).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(*lead, cin, cout) / np.sqrt(cin)).astype(
+        np.float32)).to(cuda)
+    b = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).to(cuda)
+    before = fn.launches
+    got = fn(x, w, b)
+    again = fn(x, w, b)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    _close(got, plain(x, w, b), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,cin,cout", MIX_MAIN_SHAPES)
+def test_mix_kernels_at_main_path_shapes_on_card(cuda, name, shape, cin,
+                                                 cout):
+    _mix_check(cuda, name, shape, cin, cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deconv2x", "conv3d_point"])
+@pytest.mark.parametrize("cin,cout", MIX_ODD)
+def test_mix_kernels_at_odd_shapes_on_card(cuda, name, cin, cout):
+    """Batch 2, odd W, a ragged last tile with row, depth and batch breaks
+    inside tiles; Cin that fills its 16-deep K chunk only partly or is not
+    a multiple of 8 (scalar loads); Cout that is not a multiple of 8 (scalar
+    stores) or spans several 64-channel blocks."""
+    _mix_check(cuda, name, (2, 3, 5, 7), cin, cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mix_kernels_follow_the_type_on_card(cuda, dtype):
+    """bfloat16 launches the tensor-core kernel of channel_mix_mma.cu for
+    the transposed conv, its identity-bank upsample and the 1x1x1 conv with
+    its input gradient; float32 the CUDA-core kernels of channel_mix.cuh
+    (through deconv3d.cu and conv3d.cu).  One launch per call either way."""
+    from unittest import mock
+
+    from deepatlas_torch.kernels import (conv3d, conv3d_point, deconv2x,
+                                         deconv3d, nearest_up2x)
+
+    rng = np.random.RandomState(230)
+    x = torch.from_numpy(rng.randn(1, 3, 4, 5, 16).astype(np.float32)).to(
+        cuda, dtype)
+    w = torch.from_numpy(rng.randn(2, 2, 2, 16, 8).astype(np.float32)).to(
+        cuda)
+    wp = torch.from_numpy(rng.randn(16, 8).astype(np.float32)).to(cuda)
+    with mock.patch.object(deconv3d, "_deconv_mma",
+                           wraps=deconv3d._deconv_mma) as dm, \
+            mock.patch.object(deconv3d, "_deconv_simt",
+                              wraps=deconv3d._deconv_simt) as ds, \
+            mock.patch.object(conv3d, "_point_mma",
+                              wraps=conv3d._point_mma) as pm, \
+            mock.patch.object(conv3d, "_point_simt",
+                              wraps=conv3d._point_simt) as ps:
+        deconv2x(x, w)
+        nearest_up2x(x)
+        xg = x.clone().requires_grad_()
+        conv3d_point(xg, wp).float().sum().backward()
+        torch.cuda.synchronize()
+        seen = {"mma": (dm.call_count, pm.call_count),
+                "simt": (ds.call_count, ps.call_count)}
+    want = "mma" if dtype == torch.bfloat16 else "simt"
+    assert seen[want] == (2, 2)
+    assert seen["simt" if want == "mma" else "mma"] == (0, 0)

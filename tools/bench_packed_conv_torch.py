@@ -30,11 +30,18 @@ of ``csrc/conv3d.cu`` called through its C entry point, and cuDNN's
 ``F.conv3d`` (a yardstick only: the port never calls it); then the same
 three for kernel D (``conv3d_k3_wgrad``, ``csrc/conv3d_wgrad.cu``,
 ``torch.nn.grad.conv3d_weight``) at UNet_light's weight-gradient shapes
-(each k3 conv's input and an upstream gradient of its output's shape).
-The tensor-core results are held against the CUDA-core ones (A within one
-bf16 rounding, 1e-2 of the range; D within 1e-4, both sum exact bf16
-products in float32); a mismatch fails the run.  On the CPU the CUDA-core
-column is empty.
+(each k3 conv's input and an upstream gradient of its output's shape);
+then the same three for kernel C (``deconv2x``: the tensor-core kernel of
+``csrc/channel_mix_mma.cu``, the CUDA-core kernel of ``csrc/deconv3d.cu``,
+``F.conv_transpose3d``) and kernel B (``conv3d_point``: the same tensor-core
+source, ``csrc/conv3d.cu``, ``F.conv3d``) at UNet_light's forward shapes,
+each also timed queued (the stream held by a spin kernel while the host
+enqueues the calls: the card's time without the host's launch overhead,
+which the event times of the smaller shapes hold).
+The tensor-core results are held against the CUDA-core ones (A, B and C
+within one bf16 rounding, 1e-2 of the range; D within 1e-4, both sum exact
+bf16 products in float32); a mismatch fails the run.  On the CPU the
+CUDA-core column and the queued times are empty.
 
   python tools/bench_packed_conv_torch.py [--iters 10] [--step-ms 152.3]
       [--before-after]
@@ -176,45 +183,62 @@ def _fmt(ms):
 
 
 def before_after(uniq, device, ms_of, iters, gen, made):
-    """Kernels A and D in bf16 per k3 shape: the tensor-core kernel (through
-    its wrapper, counted in ``made``), the CUDA-core kernel (through its C
-    entry point; on the card only) and cuDNN, timed in turns and held
-    against each other.  Returns ``{"conv3d_k3": rows, "conv3d_k3_wgrad":
-    rows, "totals"}``, totals weighted by calls per forward (every k3 conv
-    of a training step has one weight gradient)."""
+    """Kernels A, D, C and B in bf16 per shape: the tensor-core kernel
+    (through its wrapper, counted in ``made``), the CUDA-core kernel
+    (through its C entry point; on the card only) and cuDNN, timed in turns
+    and held against each other; C and B also queued (on the card only).
+    Returns ``{"conv3d_k3": rows, "conv3d_k3_wgrad": rows, "deconv2x":
+    rows, "conv3d_point": rows, "totals"}``, totals weighted by calls per
+    forward (every k3 conv of a training step has one weight gradient)."""
     import torch
 
-    from deepatlas_torch.kernels import conv3d, conv3d_k3, conv3d_k3_wgrad
+    from deepatlas_torch.kernels import (conv3d, conv3d_k3, conv3d_k3_wgrad,
+                                         conv3d_point, deconv2x, deconv3d)
 
     on_card = device.type == "cuda"
+    queued = (lambda fn, n: cuda_ms(fn, n, queued=True)) if on_card else None
     made["conv3d_k3_wgrad"] = 0
-    out = {"conv3d_k3": [], "conv3d_k3_wgrad": []}
+    out = {"conv3d_k3": [], "conv3d_k3_wgrad": [], "deconv2x": [],
+           "conv3d_point": []}
     print(f"before/after, bf16, ms per call: tensor core (wrapper) | CUDA "
-          f"core (C entry point) | cuDNN | bound", flush=True)
+          f"core (C entry point) | cuDNN | bound; C and B queued: tensor "
+          f"core | CUDA core | cuDNN", flush=True)
+
+    def counted(name, fn):
+        def call():
+            made[name] += 1
+            return fn()
+        return call
+
     for (kind, xs, ws, kwt), n in uniq.items():
-        if kind != "conv3d_k3":
-            continue
         x, w = inputs(kind, xs, ws, device, gen)
         wk = w.to(torch.bfloat16).float()
-        g = (torch.rand(xs[:4] + (ws[-1],), generator=gen, device=device)
-             * 2 - 1).to(torch.bfloat16)
         nvox, cin, cout = int(np.prod(xs[:4])), ws[-2], ws[-1]
-
-        def fwd(x=x, w=w):
-            made["conv3d_k3"] += 1
-            return conv3d_k3(x, w)
-
-        def wgrad(x=x, g=g):
-            made["conv3d_k3_wgrad"] += 1
-            return conv3d_k3_wgrad(x, g)
-
-        for name, tc, simt, lib, tol in (
-                ("conv3d_k3", fwd,
-                 lambda x=x, wk=wk: conv3d._k3_simt(x, wk, None),
-                 library_call("conv3d_k3", x, w), TOL["bfloat16"]),
-                ("conv3d_k3_wgrad", wgrad,
-                 lambda x=x, g=g: conv3d._wgrad_simt(x, g),
-                 library_call("conv3d_k3_wgrad", x, g), TOL["float32"])):
+        if kind == "conv3d_k3":
+            g = (torch.rand(xs[:4] + (ws[-1],), generator=gen, device=device)
+                 * 2 - 1).to(torch.bfloat16)
+            cases = (
+                ("conv3d_k3", counted("conv3d_k3", lambda: conv3d_k3(x, w)),
+                 lambda: conv3d._k3_simt(x, wk, None),
+                 library_call("conv3d_k3", x, w), TOL["bfloat16"], False),
+                ("conv3d_k3_wgrad",
+                 counted("conv3d_k3_wgrad", lambda: conv3d_k3_wgrad(x, g)),
+                 lambda: conv3d._wgrad_simt(x, g),
+                 library_call("conv3d_k3_wgrad", x, g), TOL["float32"],
+                 False))
+        elif kind == "deconv2x":
+            cases = (("deconv2x", counted("deconv2x", lambda: deconv2x(x, w)),
+                      lambda: deconv3d._deconv_simt(x, wk, None),
+                      library_call("deconv2x", x, w), TOL["bfloat16"],
+                      True),)
+        else:
+            cases = (("conv3d_point",
+                      counted("conv3d_point", lambda: conv3d_point(x, w)),
+                      lambda: conv3d._point_simt(x, wk.reshape(cin, cout),
+                                                 None),
+                      library_call("conv3d_point", x, w.reshape(cin, cout)),
+                      TOL["bfloat16"], True),)
+        for name, tc, simt, lib, tol, timed_queued in cases:
             err = None
             if on_card:
                 a, b = tc().float(), simt().float()
@@ -226,23 +250,32 @@ def before_after(uniq, device, ms_of, iters, gen, made):
                 del a, b
             tc_ms, simt_ms, lib_ms = in_turns(
                 [tc, simt if on_card else None, lib], ms_of, iters)
+            tc_q = simt_q = lib_q = None
+            if timed_queued and on_card:
+                tc_q, simt_q, lib_q = in_turns([tc, simt, lib], queued, iters)
             bms, by = bound_ms(name, nvox, cin, cout, "bfloat16")
             out[name].append({"x": list(xs), "cin": cin, "cout": cout,
                               "n": n, "tensor_core_ms": tc_ms,
                               "cuda_core_ms": simt_ms, "library_ms": lib_ms,
+                              "tensor_core_device_ms": tc_q,
+                              "cuda_core_device_ms": simt_q,
+                              "library_device_ms": lib_q,
                               "bound_ms": bms, "bound_by": by,
                               "max_abs_diff_tc_vs_cuda_core": err})
+            queued_cols = (f" | queued {_fmt(tc_q)} | {_fmt(simt_q)} | "
+                           f"{_fmt(lib_q)}" if timed_queued else "")
             print(f"{name:15} {str(xs):>24} {f'{cin}->{cout}':>7} {n:>2} | "
                   f"{_fmt(tc_ms)} | {_fmt(simt_ms)} | {_fmt(lib_ms)} | "
-                  f"{bms:7.4f}", flush=True)
-        del x, w, wk, g
+                  f"{bms:7.4f}{queued_cols}", flush=True)
+        del x, w, wk, cases, tc, simt, lib
     totals = {}
     for name, rows in out.items():
         totals[name] = {
             key: (None if any(r[key] is None for r in rows)
                   else sum(r["n"] * r[key] for r in rows))
             for key in ("tensor_core_ms", "cuda_core_ms", "library_ms",
-                        "bound_ms")}
+                        "bound_ms", "tensor_core_device_ms",
+                        "cuda_core_device_ms", "library_device_ms")}
         t = totals[name]
         print(f"{name:15} {'total':>24} {'':>7} "
               f"{sum(r['n'] for r in rows):>2} | {_fmt(t['tensor_core_ms'])} "
@@ -267,8 +300,9 @@ def main(argv=None):
                          "profile_seg_step_torch.py) for the peak share")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--before-after", action="store_true",
-                    help="also time kernels A and D in bf16 on the tensor "
-                         "cores, on the CUDA cores and in cuDNN, per shape")
+                    help="also time kernels A, D, C and B in bf16 on the "
+                         "tensor cores, on the CUDA cores and in cuDNN, per "
+                         "shape")
     args = ap.parse_args(argv)
 
     import torch
