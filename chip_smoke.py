@@ -33,13 +33,15 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      transposed-conv kernel at the decoder's full-resolution upsample (also
      with the identity bank against ``nearest_resize``), and the three warp
      kernels (trilinear warp, its grid
-     gradient, the splat) at 1x168x200x168 with one float32 channel (the
-     step's call) and two bfloat16 channels, on a smooth field (up to 2.5
+     gradient, the splat) at 1x168x200x168 with one channel (the step's
+     call) and two, in float32 and bfloat16, on a smooth field (up to 2.5
      voxels) and on a saturated one (up to 20 voxels, clamped to 8), and at
-     one odd small shape; then the differentiable entry point's two
-     gradients against the same Function on the plain versions.  Joint:
-     the warp and splat again at the anatomy's 32 channels (bfloat16
-     probabilities, the float32 one-hot the f-hard branch splats), and the
+     two odd small shapes (3 and 33 channels); the splat, which adds in
+     64-bit fixed point, twice and bit for bit; then the differentiable
+     entry point's two gradients against the same Function on the plain
+     versions.  Joint: the warp and splat again at the anatomy's 32
+     channels (bfloat16 probabilities and float32, both fields; the float32
+     one-hot the f-hard branch splats), and the
      matched-label kernels (the matched warp, its fused derivative planes,
      its grid cotangent) at 1x168x200x168 with 32 block labels on the
      smooth and the saturated field and at one odd small shape, each run
@@ -109,7 +111,8 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      fall (last 5 steps against the first 5) and the test Dice and folding
      must be finite.  Then, on two states (the CLI's seeded draw of both
      nets in float32 and its trained checkpoint in bf16), one seg step per
-     regime (twice through the kernels: G's atomics) and one reg step with
+     regime (twice through the kernels, the two compared bit for bit:
+     ``rerun_*``) and one reg step with
      and without substitution, through the kernels against the plain versions: the
      parameter gradients within ``JOINT_GRAD_TOL``, the step's metrics
      within ``STEP_METRIC_TOL``; on the trained state each step is
@@ -190,8 +193,10 @@ SOURCES_BY_DTYPE = {
         "bfloat16": "deepatlas_torch/kernels/csrc/channel_mix_mma.cu",
         "float32": "deepatlas_torch/kernels/csrc/conv3d.cu"},
 }
-# kernels without atomics whose reruns must be equal bit for bit
-DETERMINISTIC = ("conv3d_k3_wgrad", "deconv2x", "conv3d_point")
+# kernels whose reruns must be equal bit for bit: no atomics, or (the
+# splat) integer atomics, whose sums do not depend on their order
+DETERMINISTIC = ("conv3d_k3_wgrad", "deconv2x", "conv3d_point",
+                 "splat_trilinear")
 PATHS = ("serving", "training", "registration", "joint")
 
 # relative tolerances max|kernel - plain| / max|plain|: float32 differs
@@ -218,8 +223,10 @@ GRAD_TOL = {"float32": 2e-3, "bfloat16_mean": 5e-2}
 # same float32 coordinates; they differ in the order of the 8 additions and
 # in fused multiply-adds.  The warp's output is rounded once to the values'
 # type (bf16: 2^-8).  The grid gradient and the splat are float32 whatever
-# the values' type; the splat's atomics add up to a few dozen terms in any
-# order.
+# the values' type; the splat sums the plain version's float32 products in
+# 64-bit fixed point (exact to 2^-38 of a channel's largest cotangent a
+# term at 5.6 M points) and rounds once, the plain version adds them in
+# float32, a few dozen a voxel.
 WARP_TOL = {"warp_trilinear": {"float32": 1e-5, "bfloat16": 1e-2},
             "warp_grid_grad": {"float32": 1e-4, "bfloat16": 1e-4},
             "splat_trilinear": {"float32": 1e-5, "bfloat16": 1e-5}}
@@ -486,6 +493,8 @@ DEVICE_TIMES = ("device_ms", "library_device_ms")
 # C entry point, is timed beside it at every shape
 CUDA_CORE_TWINS = ("deconv2x", "conv3d_point")
 CUDA_CORE_TIMES = ("cuda_core_ms", "cuda_core_device_ms")
+# the warp kernels, timed by check_warp_kernels with their queued times too
+WARP_KERNELS = ("warp_trilinear", "warp_grid_grad", "splat_trilinear")
 
 
 def all_cases():
@@ -607,8 +616,8 @@ def check_kernels(seed):
     library call's queued times (``cuda_ms(queued=True)``): the card's work
     without the host's launch overhead, which the event times of the
     smaller shapes hold; ``cuda_core_*`` the same for the CUDA-core kernel
-    of ``CUDA_CORE_TWINS``.  The kernels without atomics
-    (``DETERMINISTIC``) run twice and must give the same bits."""
+    of ``CUDA_CORE_TWINS``.  The kernels of ``DETERMINISTIC`` run twice
+    and must give the same bits."""
     import torch
 
     from deepatlas_torch.kernels import (KERNELS, conv3d,
@@ -804,12 +813,13 @@ def warp_bytes(kernel, n, c, elem):
     coordinates per point; the warp reads one value of the volume and
     writes one per point and channel; the grid gradient reads the volume
     and the upstream gradient and writes 12; the splat reads the upstream
-    gradient and writes a float32 volume that it first zero-fills."""
+    gradient and writes its float32 volume (here as many points as the
+    grid's) once."""
     if kernel == "warp_trilinear":
         return n * (12 + 2 * elem * c)
     if kernel == "warp_grid_grad":
         return n * (12 + 2 * elem * c + 12)
-    return n * (12 + elem * c + 2 * 4 * c)
+    return n * (12 + elem * c + 4 * c)
 
 
 # the joint unit's warp-kernel calls by (channels, type): the reg step's
@@ -830,12 +840,17 @@ def check_warp_kernels(summary, seed):
     it wants the grid in the values' type, and a bfloat16 grid cannot
     address 168 voxels) times.  Its one backward call computes both the
     grid gradient and the splat, so that time stands beside each of them.
-    The cases: the registration step's image warp (float32, one channel),
-    two bfloat16 channels, the joint training's anatomy warps (32 one-hot
-    or probability channels: bfloat16, and float32 for the f-hard splat)
-    and an odd small shape.  Fills ``summary``'s registration unit with the
-    float32 one-channel smooth-field case and its joint unit with the calls
-    of one reg step and one seg step per label regime (``JOINT_WARP_UNIT``).
+    The cases: 1, 2 and 32 channels (the registration step's image warp
+    and the splat of ones; the joint training's anatomy warps and splats)
+    in float32 and bfloat16 on the smooth and the saturated field, the
+    f-hard branch's float32 one-hot splat, and two odd small shapes.  The
+    splat (``DETERMINISTIC``) runs twice and must give the same bits.
+    Kernel times by events and queued (``device_ms``).  Fills ``summary``'s
+    registration unit with the float32 one-channel smooth-field case and
+    its joint unit with the calls of one reg step and one seg step per
+    label regime (``JOINT_WARP_UNIT``; the f-hard splat by the random
+    float32 cotangent, as earlier slices timed it; a line of its own gives
+    the unit with the f-hard branch's one-hot in its place).
     """
     import torch
     import torch.nn.functional as F
@@ -845,22 +860,31 @@ def check_warp_kernels(summary, seed):
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     full = (1,) + TRAIN_SHAPE
-    cases = [("smooth", full, 1, torch.float32, 2.5),
-             ("saturated", full, 1, torch.float32, 20.0),
-             ("smooth", full, 2, torch.bfloat16, 2.5),
-             ("saturated", full, 2, torch.bfloat16, 20.0),
-             ("smooth", full, TRAIN_CLASSES, torch.bfloat16, 2.5),
-             ("smooth", full, TRAIN_CLASSES, torch.float32, 2.5),
-             ("odd", (2, 13, 17, 11), 3, torch.float32, 3.0)]
+    # (field, shape, channels, type, amplitude, one-hot values and upstream
+    # gradient): C = 1, 2 and 32 in both types on both fields, the f-hard
+    # branch's float32 one-hot splat, two odd small shapes
+    cases = [(field, full, c, dtype, amp, False)
+             for c in (1, 2, TRAIN_CLASSES)
+             for dtype in (torch.float32, torch.bfloat16)
+             for field, amp in (("smooth", 2.5), ("saturated", 20.0))]
+    cases += [("smooth", full, TRAIN_CLASSES, torch.float32, 2.5, True),
+              ("odd", (2, 13, 17, 11), 3, torch.float32, 3.0, False),
+              ("odd", (2, 9, 10, 13), 33, torch.bfloat16, 3.0, False)]
     per_call = {}
-    for field, shape, c, dtype, amp in cases:
+    for field, shape, c, dtype, amp, onehot in cases:
         dname = str(dtype).split(".")[1]
         big = shape == full
         grid = clamp_displacement(smooth_grid(shape, amp, seed),
                                   REG_MAX_DISP).contiguous()
-        vol = torch.rand(shape + (c,), generator=gen, device="cuda").to(dtype)
-        ct = (torch.rand(shape + (c,), generator=gen, device="cuda") * 2
-              - 1).to(dtype)
+        if onehot:
+            labels = block_labels(shape, shift=(3, 5, 7))
+            vol = ct = torch.nn.functional.one_hot(
+                labels.long(), c).to(dtype).contiguous()
+        else:
+            vol = torch.rand(shape + (c,), generator=gen,
+                             device="cuda").to(dtype)
+            ct = (torch.rand(shape + (c,), generator=gen, device="cuda") * 2
+                  - 1).to(dtype)
         n = int(np.prod(shape))
         vol_l = vol.float().permute(0, 4, 1, 2, 3).requires_grad_(True)
         grid_l = grid.clone().requires_grad_(True)
@@ -896,8 +920,14 @@ def check_warp_kernels(summary, seed):
             scale = ref.float().abs().max().item()
             tol = WARP_TOL[name][dname]
             ok = bool(np.isfinite(err)) and err <= tol * scale
+            # the fixed-point splat: the same bits again
+            repeatable = None
+            if name in DETERMINISTIC:
+                repeatable = bool(torch.equal(got, fn()))
+                ok = ok and repeatable
             del got, ref
             ms = cuda_ms(fn, reps=5)
+            dev_ms = cuda_ms(fn, reps=5, queued=True)
             plain_ms = cuda_ms(plain, reps=2 if big else 3)
             lib_ms = cuda_ms(library, reps=5)
             nbytes = warp_bytes(name, n, c, 2 if dname == "bfloat16" else 4)
@@ -905,22 +935,28 @@ def check_warp_kernels(summary, seed):
             log({"phase": "kernels", "kernel": name, "path":
                  "joint" if c == TRAIN_CLASSES else "registration",
                  "field": field, "dtype": dname, "vol": list(vol.shape),
+                 "one_hot": onehot,
                  "max_disp": REG_MAX_DISP, "max_abs_err": err,
-                 "max_abs_ref": scale, "rel_tol": tol, "ok": ok,
-                 "kernel_ms": ms, "plain_ms": plain_ms,
+                 "max_abs_ref": scale, "rel_tol": tol,
+                 "bit_identical_rerun": repeatable, "ok": ok,
+                 "kernel_ms": ms, "kernel_device_ms": dev_ms,
+                 "plain_ms": plain_ms,
                  "library_ms": lib_ms, "library": "F.grid_sample forward"
                  if name == "warp_trilinear" else
                  "F.grid_sample backward (grid gradient and splat in one)",
                  "bound_ms": bms, "bound_by": "bytes"})
             if not ok:
                 raise AssertionError(f"{name} {field} {dname} {shape} C={c}: "
-                                     f"max|k-p| {err} > {tol} * {scale}")
+                                     f"max|k-p| {err} > {tol} * {scale}, "
+                                     f"bit-identical rerun {repeatable}")
             summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
                                                err)
+            # the main paths' calls on the smooth field
             if big and field == "smooth":
-                per_call[(name, c, dname)] = dict(
+                per_call[(name, c, dname, onehot)] = dict(
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bms, flops=0.0, bytes=float(nbytes))
+                    bound_ms=bms, flops=0.0, bytes=float(nbytes),
+                    device_ms=dev_ms)
         del out_l, vol_l, grid_l, ct_l, calls
 
         # the differentiable entry point: dvol through the splat and dgrid
@@ -956,11 +992,21 @@ def check_warp_kernels(summary, seed):
                                  f"{errs}")
         del grads, vol, ct, grid, raw
         torch.cuda.empty_cache()
-    for name in ("warp_trilinear", "warp_grid_grad", "splat_trilinear"):
-        summary[name]["registration"].update(per_call[(name, 1, "float32")])
+    for name in WARP_KERNELS:
+        summary[name]["registration"].update(
+            per_call[(name, 1, "float32", False)])
         for key, times in JOINT_WARP_UNIT[name].items():
-            for k, v in per_call[(name,) + key].items():
+            for k, v in per_call[(name,) + key + (False,)].items():
                 summary[name]["joint"][k] += times * v
+    # the same joint unit of G with the f-hard branch's float32 one-hot,
+    # whose zero cotangents the kernel skips, in place of the random one
+    key = ("splat_trilinear", TRAIN_CLASSES, "float32")
+    log({"phase": "kernels", "kernel": "splat_trilinear",
+         "joint_unit_with_f_hard_one_hot": {
+             k: summary[key[0]]["joint"][k] - per_call[key + (False,)][k]
+             + per_call[key + (True,)][k]
+             for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                       "bound_ms")}})
 
 
 def block_labels(shape, shift=(0, 0, 0)):
@@ -2261,8 +2307,8 @@ def step_gradients_of(step, state, other, tensors):
 
 def profiled(fn, reps=2):
     """One call of ``fn`` under ``torch.profiler`` after ``reps`` warm ones:
-    host-clock ms, device-busy ms, the idle share and the kernels by device
-    time (the 8 largest)."""
+    host-clock ms, device-busy ms, the idle share, the most memory allocated
+    during the call and the kernels by device time (the 8 largest)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2270,12 +2316,14 @@ def profiled(fn, reps=2):
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     def device_us(event):
         return getattr(event, "self_device_time_total",
@@ -2288,7 +2336,7 @@ def profiled(fn, reps=2):
     busy_ms = sum(r[0] for r in rows) / 1e3
     return {"host_ms": host_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / host_ms)
-            if busy_ms else None,
+            if busy_ms else None, "peak_allocated_gb": peak_gb,
             "kernels": [{"name": key[:80], "ms": us / 1e3, "launches": n}
                         for us, n, key in rows[:8]]}
 
@@ -2590,8 +2638,11 @@ def run_joint_path(seed, workdir):
                    "every tensor float32; trained_bfloat16: its "
                    "checkpoint, as the CLI runs",
          "untrained_disp_overflow": untrained_overflow,
-         "g_atomics": "rerun_* : the same seg step twice through the "
-                      "kernels (G adds with float atomics; H, I, J do not)",
+         "rerun": "rerun_* : the same seg step twice through the "
+                  "kernels, relative to each tensor's largest entry; G adds "
+                  "in 64-bit fixed point and H, I, J have no atomics, so "
+                  "0.0 unless another op of the step changes its bits "
+                  "between runs",
          "step_split": splits})
     bad = [k for k, v in checks.items()
            if not (v["grads_ok"] and v["metrics_ok"])]
@@ -2673,6 +2724,7 @@ def main(argv=None):
                  "max_abs_err": s["max_abs_err"]}
         # the convolutions' queued (device) times beside the event times
         keys = times + (DEVICE_TIMES if name in KERNEL_SHAPES else ()) \
+            + (("device_ms",) if name in WARP_KERNELS else ()) \
             + (CUDA_CORE_TIMES if name in CUDA_CORE_TWINS else ())
         for key in keys:
             entry[key] = sum(s[path][key] for path in PATHS)
@@ -2705,7 +2757,9 @@ def main(argv=None):
                  "bfloat16 for the convolutions, the smooth field for the "
                  "warp and anatomy kernels (float32 with one channel for "
                  "the image warps and the splat of ones, 32 channels for "
-                 "the anatomy warps and splats); matched_grid_grad, which "
+                 "the anatomy warps and splats, random values: the f-hard "
+                 "splat's one-hot stands in the kernels phase's line "
+                 "joint_unit_with_f_hard_one_hot); matched_grid_grad, which "
                  "no main path launches, gives its time per call. launches "
                  "are the four main paths' runs, read when each CLI "
                  "returns; max_abs_err is the largest over every shape "
@@ -2716,7 +2770,8 @@ def main(argv=None):
                  "UNet_light at 168x200x168 in bfloat16 (ms at its default "
                  "p_blk 4, and per p_blk and shape), timed by the block-conv "
                  "microbench in the convs phase, whose launches it counts "
-                 "apart. device_ms and library_device_ms (the convolutions) "
+                 "apart. device_ms and library_device_ms (the convolutions; "
+                 "device_ms of the warp kernels too) "
                  "are the kernel's and the library call's queued times: the "
                  "stream held by a spin kernel while the host enqueues the "
                  "calls, so that they time the card's work without the "

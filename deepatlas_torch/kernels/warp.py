@@ -41,7 +41,7 @@ _DIMS = [_I] * 8
 _SIGNATURES = {
     "warp_trilinear": [_I, _P, _P, _P, *_DIMS, _P],
     "warp_grid_grad": [_I, _P, _P, _P, _P, *_DIMS, _P],
-    "splat_trilinear": [_I, _P, _P, _P, *_DIMS, _P],
+    "splat_trilinear": [_I, _P, _P, _P, _P, _P, *_DIMS, _P],
 }
 
 
@@ -197,11 +197,15 @@ def _grid_grad_cuda(vol, grid, ct):
 
 def _splat_cuda(ct, grid, dhw):
     b, c = ct.shape[0], ct.shape[-1]
-    dvol = torch.zeros(b, *dhw, c, dtype=torch.float32, device=ct.device)
+    dvol = torch.empty(b, *dhw, c, dtype=torch.float32, device=ct.device)
+    # the kernel's scratch: the fixed-point sums and each channel's max |ct|
+    acc = torch.zeros(b, *dhw, c, dtype=torch.int64, device=ct.device)
+    maxbits = torch.zeros(c, dtype=torch.int32, device=ct.device)
     lib = build.load("warp", _SIGNATURES)
     with torch.cuda.device(ct.device):
         rc = lib.splat_trilinear(_DTYPES[ct.dtype], ct.data_ptr(),
                                  grid.data_ptr(), dvol.data_ptr(),
+                                 acc.data_ptr(), maxbits.data_ptr(),
                                  *_dims(b, dhw, c, grid), _stream(ct))
     build.check(rc, "splat_trilinear")
     splat_trilinear.launches += 1
@@ -268,9 +272,20 @@ def splat_trilinear(ct: torch.Tensor, grid: torch.Tensor,
 
         dvol[b, corner_k, c] += w_k ct[b, p, c]
 
-    The CUDA kernel adds with float ``atomicAdd``, so the order of the sums
-    and with it the last bits of the result change from run to run; hold it
-    to a tolerance, not to bit equality.
+    On the card the sums are kept in 64-bit fixed point, so the result is
+    the same bit for bit from run to run: each channel gets a power-of-two
+    scale ``2^e`` with ``P * max|ct| * 2^e <= 2^62`` (``P`` the points of
+    one sample; a first pass takes the max), every term ``w_k * ct`` (the
+    float32 product, as the plain version rounds it) is scaled and rounded
+    to an integer, the integers are added with 64-bit atomics in any order,
+    and each sum is rounded once to float32 and scaled back.  That is within
+    ``2^-e`` a term of the exact sum, far inside float32's rounding.  A
+    channel whose ``ct`` holds a NaN or an infinity is NaN everywhere in the
+    output (the plain version is NaN at least where such a value lands).
+    ``ct`` values that are exactly 0 add nothing, so a one-hot ``ct`` costs
+    about what one channel costs.  One call runs the max, the scatter and
+    the conversion, and counts one launch in ``splat_trilinear.launches``;
+    it holds an int64 scratch of the output's shape while it runs.
 
     Args:
       ct: ``(B, Do, Ho, Wo, C)`` float32 or bfloat16, contiguous.

@@ -170,17 +170,23 @@ def _warp_inputs(cuda, shape, c, dtype, amplitude, out_shape=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,c,amplitude,out_shape", [
     ((1, 13, 17, 11), 1, 2.5, None), ((2, 9, 8, 35), 3, 6.0, None),
-    ((1, 4, 5, 300), 2, 1.0, None), ((2, 7, 6, 5), 2, 0.0, (3, 4, 9))],
-    ids=["one_channel", "batch_channels", "wide", "other_output_shape"])
+    ((1, 4, 5, 300), 2, 1.0, None), ((2, 7, 6, 5), 2, 0.0, (3, 4, 9)),
+    ((1, 9, 10, 21), 8, 3.0, None), ((2, 7, 9, 13), 32, 4.0, None),
+    ((1, 6, 5, 19), 33, 2.0, (5, 6, 7))],
+    ids=["one_channel", "batch_channels", "wide", "other_output_shape",
+         "eight_channels", "anatomy_channels", "ragged_channels"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_warp_kernels_match_plain_on_card(cuda, shape, c, amplitude,
                                           out_shape, dtype):
     """Kernels E, F and G at odd sizes, batch 2, several channels, samples
-    past every border and a grid of another shape than the volume.  Both
-    sides compute the same float32 weights; the warp's output is rounded
-    once to the values' type (1e-2 in bf16, 1e-5 in float32), the grid
-    gradient (1e-4) and the splat (1e-5, float atomics in any order) are
-    float32 in both types."""
+    past every border and a grid of another shape than the volume; at C =
+    8 and 32 E spreads a point's channels over lanes in 16-byte chunks, at
+    33 it takes one thread a point; G spreads them over lanes at 8, 32 and
+    33 (33: a second group of one channel).  Both sides compute the same float32 weights; the warp's
+    output is rounded once to the values' type (1e-2 in bf16, 1e-5 in
+    float32), the grid gradient (1e-4) and the splat (1e-5: the kernel's
+    fixed-point sum is exact to 2^-e a term, the plain version's float sum
+    to a few float32 roundings) are float32 in both types."""
     from deepatlas_torch import kernels
 
     vol, grid, ct = _warp_inputs(cuda, shape, c, dtype, amplitude, out_shape)
@@ -203,6 +209,102 @@ def test_warp_kernels_match_plain_on_card(cuda, shape, c, amplitude,
         assert err <= tol * b.float().abs().max().item()
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype \
         == torch.float32
+
+
+def _splat_close(got, ref):
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,amplitude", [("smooth", 2.5),
+                                             ("saturated", 20.0)])
+@pytest.mark.parametrize("c", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splat_rerun_is_bit_identical_on_card(cuda, field, amplitude, c,
+                                              dtype):
+    """G adds in 64-bit fixed point, so three calls give the same bits,
+    on a smooth field and on one clamped to 3 voxels nearly everywhere
+    (many points on one voxel), at the splat of ones' one channel and the
+    anatomy's 32."""
+    from deepatlas_torch import kernels
+    from deepatlas_torch.ops import clamp_displacement
+
+    shape = (1, 24, 28, 40)
+    _, grid, ct = _warp_inputs(cuda, shape, c, dtype, amplitude)
+    grid = clamp_displacement(grid, 3).contiguous()
+    outs = [kernels.splat_trilinear(ct, grid, shape[1:]) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    _splat_close(outs[0], kernels.splat_trilinear_plain(ct, grid, shape[1:]))
+
+
+@pytest.mark.cuda
+def test_fhard_onehot_splat_matches_plain_on_card(cuda):
+    """The f-hard branch's splat: a float32 one-hot of 32 classes (most
+    cotangents exactly 0, which the kernel skips), against the plain
+    version; summed over the channels it is the splat of ones."""
+    from deepatlas_torch import kernels
+
+    shape = (1, 20, 24, 28)
+    _, grid, _ = _warp_inputs(cuda, shape, 1, torch.float32, 4.0)
+    rng = np.random.RandomState(231)
+    labels = torch.from_numpy(rng.randint(0, 32, shape)).to(cuda)
+    onehot = torch.nn.functional.one_hot(labels, 32).float().contiguous()
+    got = kernels.splat_trilinear(onehot, grid, shape[1:])
+    _splat_close(got, kernels.splat_trilinear_plain(onehot, grid, shape[1:]))
+    ones = kernels.splat_trilinear(torch.ones(*shape, 1, device=cuda), grid,
+                                   shape[1:])
+    torch.cuda.synchronize()
+    assert (got.sum(-1) - ones[..., 0]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_warp_32_channels_at_a_ragged_shape_on_card(cuda, dtype, aligned):
+    """E at the anatomy's 32 channels on 7 x 9 x 13 points (no multiple of
+    a block's points), with the volume 16-byte aligned (vector loads) or
+    one element off (one thread a point), against the plain version."""
+    from deepatlas_torch import kernels
+
+    shape = (1, 7, 9, 13)
+    vol, grid, _ = _warp_inputs(cuda, shape, 32, dtype, 3.0)
+    if not aligned:
+        flat = torch.empty(vol.numel() + 1, dtype=dtype, device=cuda)
+        flat[1:] = vol.reshape(-1)
+        vol = flat[1:].view(vol.shape)
+        assert vol.data_ptr() % 16 != 0 and vol.is_contiguous()
+    got = kernels.warp_trilinear(vol, grid)
+    ref = kernels.warp_trilinear_plain(vol, grid)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert got.dtype == dtype
+    assert (got.float() - ref.float()).abs().max().item() \
+        <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 32])
+def test_splat_nonfinite_channel_is_nan_on_card(cuda, c):
+    """A channel whose cotangent holds a NaN or an infinity is NaN in the
+    whole output; the other channels are as without it."""
+    from deepatlas_torch import kernels
+
+    shape = (1, 6, 7, 9)
+    _, grid, ct = _warp_inputs(cuda, shape, c, torch.float32, 2.0)
+    bad = ct.clone()
+    bad[0, 2, 3, 4, 0] = float("nan")
+    if c > 1:
+        bad[0, 1, 1, 1, 5] = float("inf")
+    got = kernels.splat_trilinear(bad, grid, shape[1:])
+    clean = kernels.splat_trilinear(ct, grid, shape[1:])
+    torch.cuda.synchronize()
+    nan = [0] if c == 1 else [0, 5]
+    assert torch.isnan(got[..., nan]).all()
+    keep = [i for i in range(c) if i not in nan]
+    assert torch.equal(got[..., keep], clean[..., keep])
 
 
 @pytest.mark.cuda
