@@ -35,9 +35,12 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      kernels (trilinear warp, its grid
      gradient, the splat) at 1x168x200x168 with one channel (the step's
      call) and two, in float32 and bfloat16, on a smooth field (up to 2.5
-     voxels) and on a saturated one (up to 20 voxels, clamped to 8), and at
-     two odd small shapes (3 and 33 channels); the splat, which adds in
-     64-bit fixed point, twice and bit for bit; then the differentiable
+     voxels), on a saturated one (up to 20 voxels, clamped to 8) and on
+     uniform noise of up to 8 voxels (adversarial), and at odd small shapes
+     (3 channels; 33 in both types on a smooth and an adversarial field);
+     the splat, which adds in 64-bit fixed point, twice and bit for bit;
+     the splat of ones (``splat_ones``: no max pass) equal bit for bit to
+     the general splat of a tensor of ones; then the differentiable
      entry point's two gradients against the same Function on the plain
      versions.  Joint: the warp and splat again at the anatomy's 32
      channels (bfloat16 probabilities and float32, both fields; the float32
@@ -48,11 +51,15 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      twice and required bit-identical, with ``F.grid_sample`` of the
      32-channel one-hot as the library yardstick; then the anatomy dice's
      deformation gradient three ways (fused, value kernel + grid cotangent,
-     plain versions), counted apart from the main paths.  Block conv: the
-     multi-plane k3 forward (kernel K, on no model path) against its plain
-     version and against the k3 conv kernel at UNet_light's 13 forward k3
-     shapes at 168x200x168, at p_blk 2, 4 and 8 in both types, and at one
-     odd small shape whose depths are no multiple of p_blk.
+     plain versions), counted apart from the main paths; and the dice's
+     per-class sums (``binned_sum``, fixed point, not a kernel) the same
+     bits again and on permuted elements, against float64.  Block conv: the
+     multi-plane k3 forward (kernel K, on no model path; bfloat16 on the
+     tensor cores, where p_blk 2 must equal kernel A bit for bit, float32
+     on the CUDA cores) against its plain version and against the k3 conv
+     kernel at UNet_light's 13 forward k3 shapes at 168x200x168, at p_blk
+     2, 4 and 8 in both types, and at one odd small shape whose depths are
+     no multiple of p_blk (p_blk 1, 2, 3, 4 and 8).
   4. main    -- the segmentation serving path: a synthetic OAI-ZIB corpus
      (160x384x384 volumes, labels 0..4, from ``--seed``), UNet_light with
      seeded weights and BatchNorm statistics saved as a checkpoint, and
@@ -111,19 +118,22 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      fall (last 5 steps against the first 5) and the test Dice and folding
      must be finite.  Then, on two states (the CLI's seeded draw of both
      nets in float32 and its trained checkpoint in bf16), one seg step per
-     regime (twice through the kernels, the two compared bit for bit:
-     ``rerun_*``) and one reg step with
-     and without substitution, through the kernels against the plain versions: the
+     regime and one reg step with and without substitution, each twice
+     through the kernels (the two compared bit for bit: ``rerun_*``, which
+     must read 0.0 for the reg step) and on the plain versions: the
      parameter gradients within ``JOINT_GRAD_TOL``, the step's metrics
      within ``STEP_METRIC_TOL``; on the trained state each step is
-     profiled.  The seeded draw's untrained field is also measured on the
+     profiled, and the reg step is run again with one kernel at a time on
+     its plain version (``reg_attribution``: which kernel's rounding moves
+     the worst entry).  The seeded draw's untrained field is also measured on the
      first pair at the corpus's intensity and at three times it.
   8. convs   -- the conv tools: ``tools/bench_packed_conv_torch.py
      --before-after`` (the per-shape roofline of kernels A, B and C on
      UNet_light's forward at 168x200x168, then A, D, C and B in bf16 per
      shape on the tensor cores, on the CUDA cores and in cuDNN, in turns) and
-     ``tools/bench_block_conv_torch.py`` (kernel K at p_blk
-     2, 4 and 8 against kernel A, cuDNN beside), ``--iters 3`` each, with
+     ``tools/bench_block_conv_torch.py`` (kernel K at p_blk 2, 4 and 8 on
+     the tensor cores and on the CUDA cores against kernel A, cuDNN beside,
+     in turns), ``--iters 3`` each, with
      their rows logged; each kernel must launch exactly as often as the
      tool called it, K's launches are the ones its kernels entry counts
      apart.  Run after the kernels phase, before the main paths.
@@ -175,7 +185,7 @@ KERNEL_INFO = {
                      "deepatlas_tpu/pallas/anatomy.py:46"),
     "matched_grid_grad": ("deepatlas_torch/kernels/csrc/anatomy.cu",
                           "deepatlas_tpu/pallas/anatomy.py:213"),
-    "conv3d_k3_block": ("deepatlas_torch/kernels/csrc/conv3d_block.cu",
+    "conv3d_k3_block": ("deepatlas_torch/kernels/csrc/conv3d_mma.cu",
                         "deepatlas_tpu/pallas/conv3d.py:273"),
 }
 # the kernels whose source the tensor's type picks: the tensor cores in
@@ -192,6 +202,9 @@ SOURCES_BY_DTYPE = {
     "conv3d_point": {
         "bfloat16": "deepatlas_torch/kernels/csrc/channel_mix_mma.cu",
         "float32": "deepatlas_torch/kernels/csrc/conv3d.cu"},
+    "conv3d_k3_block": {
+        "bfloat16": "deepatlas_torch/kernels/csrc/conv3d_mma.cu",
+        "float32": "deepatlas_torch/kernels/csrc/conv3d_block.cu"},
 }
 # kernels whose reruns must be equal bit for bit: no atomics, or (the
 # splat) integer atomics, whose sums do not depend on their order
@@ -237,8 +250,8 @@ WARP_TOL = {"warp_trilinear": {"float32": 1e-5, "bfloat16": 1e-2},
 # scaled by (n - 1) / 2 up to 99.5: relative to their largest entry
 MATCHED_TOL = {"m": 1e-6, "planes": 1e-5}
 # the anatomy dice through the kernels against the plain versions: the same
-# per-class sums (float32 index_add_, atomics in any order over 5.6 M
-# voxels) and the same per-point gradients
+# per-class sums (binned_sum, fixed point, the same bits in any order) and
+# the same per-point gradients
 ANATOMY_LOSS_TOL = 1e-5
 ANATOMY_GRAD_TOL = 1e-4
 # one registration step's parameter gradients, kernels against plain
@@ -808,6 +821,20 @@ def smooth_grid(shape, amplitude_vox, seed):
     return grid.contiguous()
 
 
+def noise_grid(shape, max_disp, gen):
+    """A deformation grid ``(B, D, H, W, 3)`` on the card: the identity
+    plus uniform noise of up to ``max_disp`` voxels per axis and voxel (no
+    training regime makes it; the worst case for the gathers' locality)."""
+    import torch
+
+    from deepatlas_torch.ops import identity_grid_batch, normalize_displacement
+
+    disp = (torch.rand(tuple(shape) + (3,), generator=gen, device="cuda")
+            * 2 - 1) * max_disp
+    return (normalize_displacement(disp)
+            + identity_grid_batch(shape, device="cuda")).contiguous()
+
+
 def warp_bytes(kernel, n, c, elem):
     """Bytes the function must move on ``n`` sample points: 12 of
     coordinates per point; the warp reads one value of the volume and
@@ -830,7 +857,7 @@ def warp_bytes(kernel, n, c, elem):
 JOINT_WARP_UNIT = {
     "warp_trilinear": {(1, "float32"): 1, (TRAIN_CLASSES, "bfloat16"): 2},
     "warp_grid_grad": {(1, "float32"): 2},
-    "splat_trilinear": {(1, "float32"): 2, (TRAIN_CLASSES, "bfloat16"): 1,
+    "splat_trilinear": {"ones": 2, (TRAIN_CLASSES, "bfloat16"): 1,
                         (TRAIN_CLASSES, "float32"): 1}}
 
 
@@ -841,10 +868,13 @@ def check_warp_kernels(summary, seed):
     address 168 voxels) times.  Its one backward call computes both the
     grid gradient and the splat, so that time stands beside each of them.
     The cases: 1, 2 and 32 channels (the registration step's image warp
-    and the splat of ones; the joint training's anatomy warps and splats)
-    in float32 and bfloat16 on the smooth and the saturated field, the
-    f-hard branch's float32 one-hot splat, and two odd small shapes.  The
-    splat (``DETERMINISTIC``) runs twice and must give the same bits.
+    and its grid gradient; the joint training's anatomy warps and splats)
+    in float32 and bfloat16 on the smooth, the saturated and the
+    adversarial field, the f-hard branch's float32 one-hot splat, and odd
+    small shapes (3 channels; 33 in both types on two fields).  The splat
+    (``DETERMINISTIC``) runs twice and must give the same bits; the splat
+    of ones (``splat_ones``) must give the general path's bits on a tensor
+    of ones, and its time stands for the joint unit's two such calls.
     Kernel times by events and queued (``device_ms``).  Fills ``summary``'s
     registration unit with the float32 one-channel smooth-field case and
     its joint unit with the calls of one reg step and one seg step per
@@ -861,21 +891,27 @@ def check_warp_kernels(summary, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     full = (1,) + TRAIN_SHAPE
     # (field, shape, channels, type, amplitude, one-hot values and upstream
-    # gradient): C = 1, 2 and 32 in both types on both fields, the f-hard
-    # branch's float32 one-hot splat, two odd small shapes
+    # gradient): C = 1, 2 and 32 in both types on the three fields, the
+    # f-hard branch's float32 one-hot splat, odd small shapes (3 channels;
+    # 33 in both types on a smooth and an adversarial field)
     cases = [(field, full, c, dtype, amp, False)
              for c in (1, 2, TRAIN_CLASSES)
              for dtype in (torch.float32, torch.bfloat16)
-             for field, amp in (("smooth", 2.5), ("saturated", 20.0))]
+             for field, amp in (("smooth", 2.5), ("saturated", 20.0),
+                                ("adversarial", REG_MAX_DISP))]
     cases += [("smooth", full, TRAIN_CLASSES, torch.float32, 2.5, True),
-              ("odd", (2, 13, 17, 11), 3, torch.float32, 3.0, False),
-              ("odd", (2, 9, 10, 13), 33, torch.bfloat16, 3.0, False)]
+              ("odd", (2, 13, 17, 11), 3, torch.float32, 3.0, False)]
+    cases += [(field, (2, 9, 10, 13), 33, dtype, amp, False)
+              for dtype in (torch.float32, torch.bfloat16)
+              for field, amp in (("odd", 3.0),
+                                 ("odd adversarial", REG_MAX_DISP))]
     per_call = {}
     for field, shape, c, dtype, amp, onehot in cases:
         dname = str(dtype).split(".")[1]
         big = shape == full
-        grid = clamp_displacement(smooth_grid(shape, amp, seed),
-                                  REG_MAX_DISP).contiguous()
+        raw = noise_grid(shape, amp, gen) if "adversarial" in field \
+            else smooth_grid(shape, amp, seed)
+        grid = clamp_displacement(raw, REG_MAX_DISP).contiguous()
         if onehot:
             labels = block_labels(shape, shift=(3, 5, 7))
             vol = ct = torch.nn.functional.one_hot(
@@ -959,10 +995,46 @@ def check_warp_kernels(summary, seed):
                     device_ms=dev_ms)
         del out_l, vol_l, grid_l, ct_l, calls
 
+        # the splat of ones (the anatomy dice's): no max pass, no cotangent;
+        # the same bits as the general path on a tensor of ones
+        if big and c == 1 and dtype == torch.float32:
+            ones = torch.ones(shape + (1,), device="cuda")
+            got = kernels.splat_ones(grid, shape[1:])
+            same = bool(torch.equal(got, kernels.splat_trilinear(
+                ones, grid, shape[1:]))) and bool(torch.equal(
+                    got, kernels.splat_ones(grid, shape[1:])))
+            del got
+            ones_fn = functools.partial(kernels.splat_ones, grid, shape[1:])
+            general = functools.partial(kernels.splat_trilinear, ones, grid,
+                                        shape[1:])
+            times = {"ms": cuda_ms(ones_fn, reps=5),
+                     "device_ms": cuda_ms(ones_fn, reps=5, queued=True),
+                     "general_ms": cuda_ms(general, reps=5),
+                     "general_device_ms": cuda_ms(general, reps=5,
+                                                  queued=True),
+                     "plain_ms": cuda_ms(lambda: kernels.splat_trilinear_plain(
+                         ones, grid, shape[1:]), reps=2)}
+            log({"phase": "kernels", "kernel": "splat_trilinear",
+                 "role": "splat_ones (the splat of ones)", "path": "joint",
+                 "field": field, "vol": list(shape) + [1],
+                 "equals_general_path_and_rerun": same, **times})
+            if not same:
+                raise AssertionError(f"splat_ones {field}: not the general "
+                                     f"path's bits on ones, or not the same "
+                                     f"bits again")
+            if field == "smooth":
+                per_call[("splat_ones",)] = dict(
+                    ms=times["ms"], plain_ms=times["plain_ms"],
+                    device_ms=times["device_ms"], flops=0.0,
+                    bytes=float(n * 16), bound_ms=n * 16 / HBM_BYTES_PER_S
+                    * 1e3, library_ms=per_call[
+                        ("splat_trilinear", 1, "float32", False)][
+                        "library_ms"])
+            del ones, ones_fn, general
+
         # the differentiable entry point: dvol through the splat and dgrid
         # through the grid gradient, the clamp's mask included, against the
         # same Function on the plain versions
-        raw = smooth_grid(shape, amp, seed)
         grads = []
         for use_plain in (False, True):
             v = vol.clone().requires_grad_(True)
@@ -996,7 +1068,9 @@ def check_warp_kernels(summary, seed):
         summary[name]["registration"].update(
             per_call[(name, 1, "float32", False)])
         for key, times in JOINT_WARP_UNIT[name].items():
-            for k, v in per_call[(name,) + key + (False,)].items():
+            call = per_call[("splat_ones",) if key == "ones"
+                            else (name,) + key + (False,)]
+            for k, v in call.items():
                 summary[name]["joint"][k] += times * v
     # the same joint unit of G with the f-hard branch's float32 one-hot,
     # whose zero cotangents the kernel skips, in place of the random one
@@ -1195,8 +1269,10 @@ def check_anatomy_kernels(summary, seed):
         del grads, raw, grid, lab_m, lab_f, ct
         torch.cuda.empty_cache()
 
-    # the anatomy dice's per-class sums (index_add_, not a kernel): spread
-    # over lanes, as binned_sum adds them, against one address per class
+    # the anatomy dice's per-class sums (fixed point: integer terms added
+    # in float64 by index_add_, not a kernel): against float32 index_add_ at
+    # one address per class; the same bits again, and on the elements in
+    # another order
     from deepatlas_torch.kernels.anatomy import _BIN_LANES, binned_sum
     lab = block_labels(full).long()
     vals = torch.rand(lab.shape, generator=gen, device="cuda")
@@ -1206,18 +1282,35 @@ def check_anatomy_kernels(summary, seed):
             0, lab.reshape(-1), vals.reshape(-1))
 
     ref = one_lane()
-    err = ((binned_sum(vals, lab, TRAIN_CLASSES) - ref).abs().max()
-           / ref.abs().max()).item()
+    got = binned_sum(vals, lab, TRAIN_CLASSES)
+    order = torch.randperm(lab.numel(), generator=gen, device="cuda")
+    same = bool(torch.equal(got, binned_sum(vals, lab, TRAIN_CLASSES))) \
+        and bool(torch.equal(got, binned_sum(vals.reshape(-1)[order],
+                                             lab.reshape(-1)[order],
+                                             TRAIN_CLASSES)))
+    exact = torch.zeros(TRAIN_CLASSES, dtype=torch.float64,
+                        device="cuda").index_add_(
+        0, lab.reshape(-1), vals.reshape(-1).double())
+    err = ((got.double() - exact).abs().max() / exact.abs().max()).item()
+    err_one_lane = ((ref.double() - exact).abs().max()
+                    / exact.abs().max()).item()
     log({"phase": "kernels", "path": "joint",
-         "kernel": "binned_sum (index_add_, not a kernel)",
+         "kernel": "binned_sum (fixed point by float64 index_add_, not a "
+                   "kernel)",
          "labels": list(lab.shape), "classes": TRAIN_CLASSES,
          "lanes": _BIN_LANES,
          "ms": cuda_ms(lambda: binned_sum(vals, lab, TRAIN_CLASSES), reps=5),
+         "device_ms": cuda_ms(lambda: binned_sum(vals, lab, TRAIN_CLASSES),
+                              reps=5, queued=True),
          "one_lane_ms": cuda_ms(one_lane, reps=5),
-         "rel_err_vs_one_lane": err})
-    # float32 sums of 176 k values in [0, 1) per class, in any order
-    if not err <= 1e-4:
-        raise AssertionError(f"binned_sum against one lane: {err}")
+         "one_lane_device_ms": cuda_ms(one_lane, reps=5, queued=True),
+         "rel_err_vs_float64": err, "one_lane_rel_err_vs_float64":
+             err_one_lane, "same_bits_rerun_and_permuted": same})
+    # float32 sums of 176 k values in [0, 1) per class: the fixed point is
+    # exact to 2^-28 a term and one float32 rounding
+    if not (err <= 1e-6 and same):
+        raise AssertionError(f"binned_sum: {err} against float64, same "
+                             f"bits {same}")
     return apart
 
 
@@ -1227,7 +1320,7 @@ def check_anatomy_kernels(summary, seed):
 BLOCK_P_BLKS = (2, 4, 8)
 BLOCK_DEFAULT_P_BLK = 4          # conv3d_k3_block's default
 BLOCK_TAIL = {"hw": (13, 37), "cin": 24, "cout": 40, "depths": (7, 10, 12),
-              "p_blks": (2, 3, 4)}
+              "p_blks": (1, 2, 3, 4, 8)}
 # the convs phase runs each tool with this many timed launches per shape
 CONV_TOOL_ITERS = 3
 
@@ -1244,10 +1337,13 @@ def check_block_kernel(seed):
     """Phase 3, kernel K (``conv3d_k3_block``): against its plain version
     and against kernel A (the same function) at every k3 shape of
     UNet_light's forward at 168x200x168, at p_blk 2, 4 and 8, in float32
-    and bfloat16, under A's limits (``TOL``); then at one odd small shape
-    whose depths 7, 10 and 12 are no multiple of the p_blk values 2, 3 and 4.
-    The plain version is timed in bfloat16 at the forward's shapes (K's own
-    times come from the convs phase).  Returns ``{"max_abs_err",
+    (the CUDA cores, ``csrc/conv3d_block.cu``) and bfloat16 (the tensor
+    cores, ``csrc/conv3d_mma.cu``, where p_blk 2 is kernel A's own instance
+    and must equal it bit for bit), under A's limits (``TOL``); then at one
+    odd small shape whose depths 7, 10 and 12 are no multiple of most of
+    the p_blk values 1, 2, 3, 4 and 8.  The plain version is timed in
+    bfloat16 at the forward's shapes (K's own times come from the convs
+    phase).  Returns ``{"max_abs_err",
     "max_abs_diff_vs_a", "plain_ms": {(dhw, cin, cout): ms}}``."""
     import torch
 
@@ -1269,9 +1365,12 @@ def check_block_kernel(seed):
             w = torch.randn((3, 3, 3, cin, cout), generator=gen,
                             device="cuda") / np.sqrt(27 * cin)
             ref = conv3d_k3_block_plain(x, w).float()
-            a = conv3d_k3(x, w).float()
+            a_out = conv3d_k3(x, w)
+            a = a_out.float()
             scale = ref.abs().max().item()
             errs, diffs = {}, {}
+            # bfloat16 at p_blk 2 is A's own tensor-core instance
+            same_as_a = None
             for p in p_blks:
                 got = conv3d_k3_block(x, w, p_blk=p)
                 torch.cuda.synchronize()
@@ -1279,18 +1378,23 @@ def check_block_kernel(seed):
                     raise AssertionError(
                         f"conv3d_k3_block p_blk={p} {shape}: gives "
                         f"{tuple(got.shape)} {got.dtype}")
+                if p == 2 and dtype == torch.bfloat16:
+                    same_as_a = bool(torch.equal(got, a_out))
                 got = got.float()
                 errs[p] = (got - ref).abs().max().item()
                 diffs[p] = (got - a).abs().max().item()
                 del got
             limit = TOL[dname] * scale
             ok = all(np.isfinite(e) and e <= limit
-                     for e in (*errs.values(), *diffs.values()))
+                     for e in (*errs.values(), *diffs.values())) \
+                and same_as_a is not False
             rec = {"phase": "kernels", "path": "block_conv",
                    "kernel": "conv3d_k3_block", "dtype": dname,
+                   "source": SOURCES_BY_DTYPE["conv3d_k3_block"][dname],
                    "x": list(x.shape), "cin": cin, "cout": cout,
                    "calls_per_forward": n, "max_abs_err_vs_plain": errs,
                    "max_abs_diff_vs_conv3d_k3": diffs,
+                   "p_blk_2_equals_conv3d_k3": same_as_a,
                    "max_abs_ref": scale, "rel_tol": TOL[dname], "ok": ok}
             if dname == "bfloat16" and n:
                 rec["plain_ms"] = out["plain_ms"][(shape[1:], cin, cout)] = \
@@ -1300,11 +1404,12 @@ def check_block_kernel(seed):
             if not ok:
                 raise AssertionError(
                     f"conv3d_k3_block {dname} {tuple(x.shape)} -> {cout}: "
-                    f"vs plain {errs}, vs conv3d_k3 {diffs}, limit {limit}")
+                    f"vs plain {errs}, vs conv3d_k3 {diffs}, limit {limit}"
+                    f", p_blk 2 equal to conv3d_k3 {same_as_a}")
             out["max_abs_err"] = max(out["max_abs_err"], *errs.values())
             out["max_abs_diff_vs_a"] = max(out["max_abs_diff_vs_a"],
                                            *diffs.values())
-            del x, w, ref, a
+            del x, w, ref, a, a_out
     torch.cuda.empty_cache()
     return out
 
@@ -1368,6 +1473,7 @@ def block_entry(block, convs):
                               "bfloat16")[0]
     return {
         "name": "conv3d_k3_block", "route": "cuda", "source": src,
+        "sources": SOURCES_BY_DTYPE["conv3d_k3_block"],
         "replaces": replaces, "launches": 0,
         "max_abs_err": block["max_abs_err"],
         "ms": totals["k_ms"][BLOCK_DEFAULT_P_BLK],
@@ -1382,11 +1488,17 @@ def block_entry(block, convs):
             convs["block"]["launches"]["conv3d_k3_block"],
         "max_abs_diff_vs_conv3d_k3": block["max_abs_diff_vs_a"],
         "conv3d_k3_ms": totals["a_ms"],
+        "cuda_core_ms": totals["k_simt_ms"][BLOCK_DEFAULT_P_BLK],
         "p_blk": {str(p): {"ms": totals["k_ms"][p],
+                           "cuda_core_ms": totals["k_simt_ms"][p],
                            "per_shape_ms": [
                                {"x": r["x"], "cin": r["cin"],
                                 "cout": r["cout"], "calls_per_forward": r["n"],
-                                "ms": r["k_ms"][p]} for r in rows]}
+                                "ms": r["k_ms"][p],
+                                "cuda_core_ms": r["k_simt_ms"][p],
+                                "conv3d_k3_ms": r["a_ms"],
+                                "library_ms": r["library_ms"]}
+                               for r in rows]}
                   for p in BLOCK_P_BLKS}}
 
 
@@ -1629,27 +1741,36 @@ def write_mindboggle_corpus(root, seed, shape=MB_SHAPE,
     return names
 
 
-@contextlib.contextmanager
-def plain_math():
-    """Run the wrappers' autograd Functions on the plain versions' math on
-    the card (for the comparison only: nothing in the port does this)."""
-    from deepatlas_torch.kernels import anatomy, conv3d, deconv3d, warp
+# each kernel's launching functions and the plain math that replaces them:
+# (module, launcher, plain)
+PLAIN_OF = {
+    "conv3d_k3": (("conv3d", "_k3_cuda", "_k3_math"),
+                  ("conv3d", "_dx_cuda", "_dx_math")),
+    "conv3d_k3_wgrad": (("conv3d", "_wgrad_cuda", "_wgrad_math"),),
+    "conv3d_point": (("conv3d", "_point_cuda", "_point_math"),),
+    "deconv2x": (("deconv3d", "_deconv_cuda", "_deconv_math"),),
+    "warp_trilinear": (("warp", "_warp_cuda", "_warp_math"),),
+    "warp_grid_grad": (("warp", "_grid_grad_cuda", "_grid_grad_math"),),
+    "splat_trilinear": (("warp", "_splat_cuda", "_splat_math"),),
+    "matched_warp": (("anatomy", "_matched_cuda", "_matched_math"),),
+    "matched_warp_fused": (("anatomy", "_fused_cuda", "_fused_math"),),
+    "matched_grid_grad": (("anatomy", "_grid_grad_cuda", "_grid_grad_math"),),
+}
 
-    with mock.patch.object(conv3d, "_k3_cuda", conv3d._k3_math), \
-            mock.patch.object(conv3d, "_dx_cuda", conv3d._dx_math), \
-            mock.patch.object(conv3d, "_wgrad_cuda", conv3d._wgrad_math), \
-            mock.patch.object(conv3d, "_point_cuda", conv3d._point_math), \
-            mock.patch.object(deconv3d, "_deconv_cuda",
-                              deconv3d._deconv_math), \
-            mock.patch.object(warp, "_warp_cuda", warp._warp_math), \
-            mock.patch.object(warp, "_grid_grad_cuda",
-                              warp._grid_grad_math), \
-            mock.patch.object(warp, "_splat_cuda", warp._splat_math), \
-            mock.patch.object(anatomy, "_matched_cuda",
-                              anatomy._matched_math), \
-            mock.patch.object(anatomy, "_fused_cuda", anatomy._fused_math), \
-            mock.patch.object(anatomy, "_grid_grad_cuda",
-                              anatomy._grid_grad_math):
+
+@contextlib.contextmanager
+def plain_math(names=None):
+    """Run the wrappers' autograd Functions on the plain versions' math on
+    the card (for the comparison only: nothing in the port does this):
+    every kernel's, or only those of the kernels ``names``."""
+    from deepatlas_torch import kernels
+
+    with contextlib.ExitStack() as stack:
+        for name in PLAIN_OF if names is None else names:
+            for module, launcher, plain in PLAIN_OF[name]:
+                mod = getattr(kernels, module)
+                stack.enter_context(mock.patch.object(
+                    mod, launcher, getattr(mod, plain)))
         yield
 
 
@@ -2586,7 +2707,7 @@ def run_joint_path(seed, workdir):
                 "metrics_abs_err": errs, "metric_tol": STEP_METRIC_TOL,
                 "metrics_ok": max(errs.values()) <= STEP_METRIC_TOL}
 
-    checks, splits = {}, {}
+    checks, splits, reg_attribution = {}, {}, {}
     for state_name, (seg_model, reg_model), dtype in (
             ("initial_float32", initial, torch.float32),
             ("trained_bfloat16", trained, torch.bfloat16)):
@@ -2621,16 +2742,35 @@ def run_joint_path(seed, workdir):
         for substituted in (0, 1):
             args = tensors(True, not substituted)
             m_k, g_k = step_gradients_of(reg_step, reg_state, seg_state, args)
+            _, g_k2 = step_gradients_of(reg_step, reg_state, seg_state, args)
             with plain_math():
                 m_p, g_p = step_gradients_of(reg_step, reg_state, seg_state,
                                              args)
+            rerun_max, rerun_mean = grad_agreement(g_k2, g_k)
             checks[f"{state_name}_reg_substituted_{substituted}"] = dict(
-                metric_errors(m_k, m_p), **agreement("reg", dtype, g_k, g_p))
+                metric_errors(m_k, m_p), **agreement("reg", dtype, g_k, g_p),
+                rerun_worst_max_rel=rerun_max,
+                rerun_worst_mean_rel=rerun_mean)
             if profile:
+                # which kernel's rounding moves the worst entry: the same
+                # step with one kernel at a time on its plain version
+                launched = joint_reg_launches(substituted)
+                one_plain = {}
+                for name in PLAIN_OF:
+                    if not launched[name]:
+                        continue
+                    with plain_math([name]):
+                        _, g_1 = step_gradients_of(reg_step, reg_state,
+                                                   seg_state, args)
+                    worst_max, worst_mean = grad_agreement(g_k, g_1)
+                    one_plain[name] = {"worst_max_rel": worst_max,
+                                       "worst_mean_rel": worst_mean}
+                    del g_1
+                reg_attribution[f"substituted_{substituted}"] = one_plain
                 splits[f"reg_substituted_{substituted}"] = profiled(
                     lambda: step_gradients_of(reg_step, reg_state, seg_state,
                                               args))
-            del g_k, g_p
+            del g_k, g_k2, g_p
         del seg_state, reg_state, seg_model, reg_model
         torch.cuda.empty_cache()
     log({"phase": "joint_check", "gradients_vs_plain": checks,
@@ -2638,14 +2778,23 @@ def run_joint_path(seed, workdir):
                    "every tensor float32; trained_bfloat16: its "
                    "checkpoint, as the CLI runs",
          "untrained_disp_overflow": untrained_overflow,
-         "rerun": "rerun_* : the same seg step twice through the "
-                  "kernels, relative to each tensor's largest entry; G adds "
-                  "in 64-bit fixed point and H, I, J have no atomics, so "
-                  "0.0 unless another op of the step changes its bits "
-                  "between runs",
+         "rerun": "rerun_* : the same seg or reg step twice through the "
+                  "kernels, relative to each tensor's largest entry; G and "
+                  "the anatomy dice's per-class sums add in 64-bit fixed "
+                  "point and H, I, J have no atomics, so 0.0 unless another "
+                  "op of the step changes its bits between runs; the reg "
+                  "step must read 0.0",
+         "reg_attribution": reg_attribution,
+         "reg_attribution_note": "the trained bf16 reg step with one "
+                                 "kernel at a time on its plain version, "
+                                 "against the step through every kernel: "
+                                 "which kernel's rounding moves the worst "
+                                 "entry of the check against the plain "
+                                 "versions",
          "step_split": splits})
     bad = [k for k, v in checks.items()
-           if not (v["grads_ok"] and v["metrics_ok"])]
+           if not (v["grads_ok"] and v["metrics_ok"])
+           or ("_reg_" in k and v["rerun_worst_max_rel"][0] != 0.0)]
     if bad:
         raise AssertionError(f"joint steps disagree: "
                              f"{ {k: checks[k] for k in bad} }")

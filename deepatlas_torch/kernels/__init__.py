@@ -18,9 +18,9 @@ from .conv3d import (conv3d_k3, conv3d_k3_block, conv3d_k3_block_plain,
                      conv3d_point, conv3d_point_plain, pack_k3_weights,
                      pack_mix_weights, parity_tap_table)
 from .deconv3d import deconv2x, deconv2x_plain, nearest_up2x
-from .warp import (grid_sample, splat_trilinear, splat_trilinear_plain,
-                   warp_grid_grad, warp_grid_grad_plain, warp_trilinear,
-                   warp_trilinear_plain)
+from .warp import (grid_sample, splat_ones, splat_trilinear,
+                   splat_trilinear_plain, warp_grid_grad,
+                   warp_grid_grad_plain, warp_trilinear, warp_trilinear_plain)
 from .warp_lncc import warp_lncc_loss
 
 # wrapper -> its plain version, in the order a training step of the U-Net,
@@ -62,6 +62,7 @@ __all__ = ["KERNELS", "binned_sum", "conv3d_k3", "conv3d_k3_block",
            "matched_grid_grad_plain", "matched_warp", "matched_warp_fused",
            "matched_warp_fused_plain", "matched_warp_plain", "nearest_up2x",
            "pack_k3_weights", "pack_mix_weights", "parity_tap_table",
-           "reset_launch_counts", "splat_trilinear", "splat_trilinear_plain",
+           "reset_launch_counts", "splat_ones", "splat_trilinear",
+           "splat_trilinear_plain",
            "warp_grid_grad", "warp_grid_grad_plain", "warp_lncc_loss",
            "warp_trilinear", "warp_trilinear_plain"]

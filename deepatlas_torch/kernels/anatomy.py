@@ -39,7 +39,7 @@ import torch
 
 from ..ops.warp import clamp_displacement
 from . import build
-from .warp import _corners, _stream, splat_trilinear, warp_grid_grad
+from .warp import _corners, _stream, splat_ones, warp_grid_grad
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _DIMS = [_I] * 7
@@ -298,10 +298,8 @@ class _SplatOnes(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, grid, dhw):
-        ones = torch.ones(*grid.shape[:4], 1, dtype=torch.float32,
-                          device=grid.device)
         ctx.save_for_backward(grid)
-        return splat_trilinear(ones, grid, dhw)[..., 0]
+        return splat_ones(grid, dhw)[..., 0]
 
     @staticmethod
     def backward(ctx, ct):
@@ -317,24 +315,76 @@ class _SplatOnes(torch.autograd.Function):
 _BIN_LANES = 256
 
 
+def _fixed_scale(amax: torch.Tensor, n: int) -> torch.Tensor:
+    """binned_sum's scale ``2^e`` (float64): ``n * amax * 2^e <= 2^52``, so
+    that every partial sum of ``n`` integer terms of at most ``amax * 2^e``
+    is an integer that float64 holds exactly (``amax < 2^ex`` by
+    ``frexp``); on the device, without a sync."""
+    lg = max(int(n) - 1, 0).bit_length()          # ceil(log2 n)
+    ex = torch.frexp(amax)[1].to(torch.float64)
+    return torch.exp2((52 - lg) - ex)
+
+
+class _BinnedSum(torch.autograd.Function):
+    """binned_sum's forward in fixed point; the backward gathers the
+    cotangent of each element's class."""
+
+    @staticmethod
+    def forward(ctx, values, labels, n_class):
+        v = values.reshape(-1).double()
+        lab = labels.reshape(-1).long()
+        valid = (lab >= 0) & (lab < n_class)
+        cls = lab.clamp(0, n_class - 1)
+        v = torch.where(valid, v, torch.zeros_like(v))
+        finite = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+        amax = finite.abs().amax() if v.numel() else v.new_zeros(())
+        scale = _fixed_scale(amax, v.numel())
+        # v * 2^e is exact in float64 (a float32 times a power of two), its
+        # rint an integer; float64 adds such integers exactly while every
+        # partial sum stays under 2^53, so the sums do not depend on the
+        # order of the card's atomics.  A NaN or an infinity stays one.
+        terms = torch.round(v * scale)
+        lane = torch.arange(v.numel(), device=v.device) % _BIN_LANES
+        partial = torch.zeros(n_class * _BIN_LANES, dtype=torch.float64,
+                              device=v.device)
+        partial.index_add_(0, cls * _BIN_LANES + lane, terms)
+        sums = partial.view(n_class, _BIN_LANES).sum(dim=1)
+        ctx.save_for_backward(cls, valid)
+        ctx.shape, ctx.dtype = values.shape, values.dtype
+        return (sums / scale).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        cls, valid = ctx.saved_tensors
+        dv = torch.where(valid, g.float().index_select(0, cls),
+                         torch.zeros((), dtype=torch.float32,
+                                     device=g.device))
+        return dv.reshape(ctx.shape).to(ctx.dtype), None, None
+
+
 def binned_sum(values: torch.Tensor, labels: torch.Tensor,
                n_class: int) -> torch.Tensor:
     """The sum of ``values`` per label: ``(n_class,)`` float32, over the
-    flattened tensors (``index_add_``; differentiable in ``values``).  A
-    label outside ``[0, n_class)`` counts in no class, as a zero row of
-    ``one_hot``.  Element ``i`` adds into lane ``i % 256`` of its class and
-    the lanes are summed after, so that the card's atomics spread over
-    ``256 * n_class`` addresses; they add in any order, so the last bits of
-    the sums change from run to run."""
-    v = values.reshape(-1).float()
-    lab = labels.reshape(-1).long()
-    valid = (lab >= 0) & (lab < n_class)
-    v = torch.where(valid, v, torch.zeros_like(v))
-    lane = torch.arange(v.numel(), device=v.device) % _BIN_LANES
-    slot = lab.clamp(0, n_class - 1) * _BIN_LANES + lane
-    partial = torch.zeros(n_class * _BIN_LANES, dtype=torch.float32,
-                          device=v.device).index_add(0, slot, v)
-    return partial.view(n_class, _BIN_LANES).sum(dim=1)
+    flattened tensors (differentiable in ``values``; the backward is a
+    gather).  A label outside ``[0, n_class)`` counts in no class, as a zero
+    row of ``one_hot``.
+
+    The sums are the same bits in whatever order the elements are added
+    (the reference, a chunked one-hot matrix product, is deterministic
+    too): each value is scaled by ``2^e`` with ``n * max|v| * 2^e <= 2^52``
+    (``n`` the elements) and rounded to an integer; float64 adds such
+    integers exactly, so the sums of ``index_add_``, whose atomics on the
+    card land in any order, are exact integers; each class's sum is scaled
+    back and rounded to float32.  That is within ``2^-e`` a term of the
+    exact sum (``2^-28`` of the largest value at 5.6 M elements), far
+    inside float32's rounding of a class's sum.  (float64 and not int64:
+    PyTorch adds int64 on the card by compare-and-swap loops, ten times
+    slower under the contention of 32 classes.)  Element ``i`` adds into
+    lane ``i % 256`` of its class and the lanes are summed after, so that
+    the atomics spread over ``256 * n_class`` addresses.  A class that
+    holds a NaN sums to NaN, one that holds an infinity to an infinity or
+    NaN."""
+    return _BinnedSum.apply(values, labels, int(n_class))
 
 
 def hard_anatomy_dice(lab_m: torch.Tensor, lab_f: torch.Tensor,

@@ -25,9 +25,10 @@ Each wrapper dispatches on the input's device, and on a CUDA tensor's type
 too: a CPU tensor goes to the plain PyTorch version beside it; a bfloat16
 CUDA tensor to the tensor-core kernels (``mma.sync``, as the TPU kernels
 compute on the MXU in bf16 with float32 sums) of ``csrc/conv3d_mma.cu`` (the
-k3 conv and its weight gradient) and ``csrc/channel_mix_mma.cu`` (the 1x1x1
-conv); a float32 CUDA tensor to the CUDA-core kernels of ``csrc/conv3d.cu``
-(the k3 conv; the 1x1x1 conv through ``csrc/channel_mix.cuh``) and
+k3 conv, its multi-plane variant and its weight gradient) and
+``csrc/channel_mix_mma.cu`` (the 1x1x1 conv); a float32 CUDA tensor to the
+CUDA-core kernels of ``csrc/conv3d.cu`` (the k3 conv; the 1x1x1 conv through
+``csrc/channel_mix.cuh``), ``csrc/conv3d_block.cu`` and
 ``csrc/conv3d_wgrad.cu``.  A kernel that cannot launch raises: there is no
 fallback.  ``<wrapper>.launches`` counts kernel launches.
 
@@ -84,6 +85,7 @@ _WGRAD_SIGNATURES = {
 }
 _MMA_SIGNATURES = {
     "conv3d_k3_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "conv3d_k3_block_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "conv3d_k3_dx_s2_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int), _P],
     "conv3d_k3_wgrad_mma_chunks": [_I, _I, _I, _I, _I, _I, _I],
@@ -464,7 +466,9 @@ def _check_p_blk(p_blk) -> None:
                          f"got {p_blk!r}")
 
 
-def _block_cuda(x, wk, p_blk):
+def _block_simt(x, wk, p_blk):
+    """Kernel K on the CUDA cores (``csrc/conv3d_block.cu``), float32
+    weights; takes either type (the float32 path's kernel)."""
     b, d, h, wd, cin = x.shape
     cout = wk.shape[-1]
     y = torch.empty(b, d, h, wd, cout, dtype=x.dtype, device=x.device)
@@ -475,6 +479,28 @@ def _block_cuda(x, wk, p_blk):
                                  wk.data_ptr(), y.data_ptr(), b, d, h, wd,
                                  cin, cout, p_blk, stream)
     build.check(rc, "conv3d_k3_block")
+    return y
+
+
+def _block_mma(x, wk, p_blk):
+    """Kernel K on the tensor cores (``csrc/conv3d_mma.cu``), bfloat16."""
+    b, d, h, wd, cin = x.shape
+    cout = wk.shape[-1]
+    wpk = pack_k3_weights(wk)
+    y = torch.empty(b, d, h, wd, cout, dtype=x.dtype, device=x.device)
+    lib = build.load("conv3d_mma", _MMA_SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3d_k3_block_mma(x.data_ptr(), wpk.data_ptr(),
+                                     y.data_ptr(), b, d, h, wd, cin, cout,
+                                     p_blk, stream)
+    build.check(rc, "conv3d_k3_block")
+    return y
+
+
+def _block_cuda(x, wk, p_blk):
+    y = (_block_mma if x.dtype == torch.bfloat16 else _block_simt)(x, wk,
+                                                                   p_blk)
     conv3d_k3_block.launches += 1
     return y
 
@@ -491,16 +517,19 @@ def conv3d_k3_block_plain(x: torch.Tensor, w: torch.Tensor,
 def conv3d_k3_block(x: torch.Tensor, w: torch.Tensor,
                     p_blk: int = 4) -> torch.Tensor:
     """Conv3d kernel 3, stride 1, zero padding 1, no bias, computed
-    ``p_blk`` output planes at a time (see ``csrc/conv3d_block.cu``); the
-    same function as ``conv3d_k3(x, w)``.  Forward only, as the JAX
+    ``p_blk`` output planes at a time; the same function as ``conv3d_k3(x,
+    w)``.  On the card a bfloat16 tensor goes to the tensor cores
+    (``csrc/conv3d_mma.cu``: kernel A's implicit GEMM with a tile ``p_blk``
+    planes deep), a float32 one to the CUDA cores
+    (``csrc/conv3d_block.cu``).  Forward only, as the JAX
     package's ``packed_conv3d_block``: it raises where autograd would need
     its gradient.
 
     Args:
       x: ``(B, D, H, W, Cin)`` float32 or bfloat16, contiguous.
       w: ``(3, 3, 3, Cin, Cout)``, rounded to x's type.
-      p_blk: output planes per block of the CUDA kernel, 1..8; any depth
-        (the tail block is guarded in the kernel).
+      p_blk: output planes per block of the CUDA kernels, 1..8; any depth
+        (the tail block is guarded in the kernels).
 
     Returns ``(B, D, H, W, Cout)`` in x's type.
     """

@@ -26,6 +26,11 @@
 // of p_blk is guarded here: the tail block's planes past the volume read the
 // conv's zero padding and are not stored.
 //
+// The wrapper (kernels/conv3d.py) sends float32 tensors here and bfloat16
+// ones to the tensor-core kernel conv3d_k3_block_mma (conv3d_mma.cu); the
+// bfloat16 instances stay for tools/bench_block_conv_torch.py, which times
+// both on the same calls.
+//
 // x is float32 or bfloat16, weights float32 (already rounded to x's type by
 // the caller); products accumulate in float32 and y is written in x's type
 // once.  The entry point returns cudaGetLastError() of its launch, or

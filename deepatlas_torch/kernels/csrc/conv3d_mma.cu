@@ -38,6 +38,19 @@
 //   * dx of the stride-1 conv is the same kernel on the upstream gradient
 //     with the adjoint weights.
 //
+// conv3d_k3_block_mma: kernel K, replaces deepatlas_tpu/pallas/conv3d.py::
+//   _conv_fwd_block_kernel (the same conv, forward only, p_blk output
+//   planes per grid step, one halo DMA serving all of them).  The same
+//   kernel with a tile p_blk planes deep: 16x4xp_blk voxels, 2 p_blk warps
+//   of two m-tiles each, so that a stage's (p_blk + 2)-plane halo and its
+//   (28 x 8) x N weights serve 64 p_blk voxels.  At 64 output channels a
+//   stage's weights are ~28 KB against a 6.9 KB halo at A's depth of 2: the
+//   weights are what a deeper tile reuses.  p_blk 2 is A's own instance.
+//   The planes past the depth read the zero padding and are not stored.
+//   At p_blk 8 a block is 512 threads, so the launch bound holds a thread
+//   to 128 registers, 64 of them the accumulators at NT = 8; at p_blk 7
+//   and 8 the B fragments of a chunk are loaded in two halves to fit.
+//
 // conv3d_k3_dx_s2_mma: the input gradient of the stride-2 conv.  Input i
 //   meets output o through tap k only where i = 2o + k - 1: per axis, even
 //   i through tap 1 (o = i/2), odd i through taps 0 (o = (i+1)/2) and 2
@@ -115,20 +128,27 @@ __host__ __device__ constexpr int xslot(int hx) {
 // ---------------------------------------------------------------- k3 conv
 enum ConvMode { kFwdS1 = 0, kFwdS2 = 1, kDxS2 = 2 };
 
-constexpr int CV_TX = 16, CV_TY = 4, CV_TZ = 2;  // tile of 128 voxels
-constexpr int CV_THREADS = 128;                  // 4 warps x 32 voxels
+constexpr int CV_TX = 16, CV_TY = 4, CV_TZ = 2;  // A's tile: 128 voxels
 constexpr int CV_MT = 2;                         // m-tiles per warp
 
-// Halo geometry of a mode.  The forward's halo starts one voxel before the
-// tile (the conv's padding) and spans S*(T-1)+3 voxels; the strided dx's
-// spans T+1 voxels of the upstream gradient from the tile's origin.
-template <int MODE>
+// Threads of a block whose tile is TZ planes deep: each warp owns CV_MT of
+// the tile's CV_TY * TZ x-lines (32 voxels), so 2 TZ warps (A: 4 warps).
+template <int TZ>
+__host__ __device__ constexpr int cv_threads() {
+  return 32 * CV_TY * TZ / CV_MT;
+}
+
+// Halo geometry of a mode and a tile TZ planes deep.  The forward's halo
+// starts one voxel before the tile (the conv's padding) and spans
+// S*(T-1)+3 voxels; the strided dx's spans T+1 voxels of the upstream
+// gradient from the tile's origin.
+template <int MODE, int TZ = CV_TZ>
 struct ConvGeo {
   static constexpr int S = MODE == kFwdS2 ? 2 : 1;
   static constexpr int ORG = MODE == kDxS2 ? 0 : -1;
   static constexpr int HX = MODE == kDxS2 ? CV_TX + 1 : S * (CV_TX - 1) + 3;
   static constexpr int HY = MODE == kDxS2 ? CV_TY + 1 : S * (CV_TY - 1) + 3;
-  static constexpr int HZ = MODE == kDxS2 ? CV_TZ + 1 : S * (CV_TZ - 1) + 3;
+  static constexpr int HZ = MODE == kDxS2 ? TZ + 1 : S * (TZ - 1) + 3;
   static constexpr int HXE = (HX + 1) / 2;
   static constexpr int HXS = S == 2 ? 2 * HXE : HX;  // slots per halo row
   static constexpr int SLOTS = HZ * HY * HXS;        // 16-byte slots
@@ -156,15 +176,15 @@ __host__ __device__ constexpr int cv_wld() {
   return NT == 1 ? 8 : 8 * NT + 8;
 }
 
-template <int MODE, int NT>
+template <int MODE, int NT, int TZ>
 __host__ __device__ constexpr int cv_stage_bytes() {
-  using G = ConvGeo<MODE>;
+  using G = ConvGeo<MODE, TZ>;
   return G::SLOTS * 16 + G::NTAP * 8 * cv_wld<NT>() * 2;
 }
 
-template <int MODE, int NT>
+template <int MODE, int NT, int TZ>
 __host__ __device__ constexpr int cv_smem_bytes() {
-  return 2 * cv_stage_bytes<MODE, NT>() + 16 + 16 * 4;
+  return 2 * cv_stage_bytes<MODE, NT, TZ>() + 16 + 16 * 4;
 }
 
 // x: the halo's source (B, SD, SH, SW, Cin) -- the conv's input, or the
@@ -174,17 +194,20 @@ __host__ __device__ constexpr int cv_smem_bytes() {
 // y: (B, YD, YH, YW, Cy); the tiles cover a (GD, GH, GW) grid: the output
 //   for the forward modes, the upstream gradient's grid for kDxS2, where
 //   grid voxel q of class p is input voxel 2q + p.
-template <int MODE, int NT>
-__global__ void __launch_bounds__(CV_THREADS)
+// TZ is the tile's depth in planes: 2 for A (every mode), p_blk for K
+// (kFwdS1 only).
+template <int MODE, int NT, int TZ>
+__global__ void __launch_bounds__(cv_threads<TZ>())
 conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
                      const float* __restrict__ bias, bf16* __restrict__ y,
                      int SD, int SH, int SW, int YD, int YH, int YW, int Cin,
                      int CP, int Cy, int NP, int tiles_x, int tiles_y,
                      int n_blocks_n, int vec, TapTable table) {
-  using G = ConvGeo<MODE>;
+  using G = ConvGeo<MODE, TZ>;
+  constexpr int THREADS = cv_threads<TZ>();
   constexpr int BN = 8 * NT, WLD = cv_wld<NT>();
   constexpr int HALO_B = G::SLOTS * 16;
-  constexpr int STAGE_B = cv_stage_bytes<MODE, NT>();
+  constexpr int STAGE_B = cv_stage_bytes<MODE, NT, TZ>();
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* zero = smem + 2 * STAGE_B;  // one 16-byte zero slot
   int* toff_s = reinterpret_cast<int*>(zero + 16);
@@ -195,7 +218,7 @@ conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
   const int tx0 = (t % tiles_x) * CV_TX;
   t /= tiles_x;
   const int ty0 = (t % tiles_y) * CV_TY;
-  const int tz0 = (t / tiles_y) * CV_TZ;
+  const int tz0 = (t / tiles_y) * TZ;
   const int b = blockIdx.y;
   const int cls = blockIdx.z / n_blocks_n;
   const int n0 = (blockIdx.z % n_blocks_n) * BN;
@@ -227,7 +250,7 @@ conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
   auto fill_stage = [&](int s, int buf) {
     const int ci0 = 8 * s;
     unsigned char* base = smem + buf * STAGE_B;
-    for (int i = tid; i < G::HZ * G::HY * G::HX; i += CV_THREADS) {
+    for (int i = tid; i < G::HZ * G::HY * G::HX; i += THREADS) {
       const int hx = i % G::HX, hy = (i / G::HX) % G::HY,
                 hz = i / (G::HX * G::HY);
       const int gx = G::S * tx0 + hx + G::ORG, gy = G::S * ty0 + hy + G::ORG,
@@ -245,7 +268,7 @@ conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
             load8_scalar(src, in ? min(8, Cin - ci0) : 0);
     }
     bf16* ws = reinterpret_cast<bf16*>(base + HALO_B);
-    for (int i = tid; i < G::NTAP * 8 * NT; i += CV_THREADS) {
+    for (int i = tid; i < G::NTAP * 8 * NT; i += THREADS) {
       const int q = i % NT, r = (i / NT) % 8, slot = i / (NT * 8);
       const int wrow = MODE == kDxS2 ? wrow_s[slot] : slot;
       const bool ok = slot < ntap && n0 + 8 * q < NP;
@@ -304,13 +327,30 @@ conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
 #pragma unroll
       for (int mt = 0; mt < CV_MT; ++mt)
         ldsm_x4(a[mt], valid ? hbase + (roff[mt] + toff) * 16 : zaddr);
-      uint32_t bfr[NT][2];
-      load_b<NT>(bfr, wbase + 16 * c * WLD * 2);
+      if constexpr (NT == 8 && TZ >= 7) {
+        // 448 or 512 threads hold a thread to 128 registers: half the B
+        // fragments at a time keeps 8 fewer live, so that nothing spills
+        // (each accumulator takes the same products in the same order)
 #pragma unroll
-      for (int mt = 0; mt < CV_MT; ++mt)
+        for (int h = 0; h < 2; ++h) {
+          uint32_t bfr[NT / 2][2];
+          load_b<NT / 2>(bfr, wbase + 16 * c * WLD * 2 + h * 64);
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_bf16(acc[mt][nt], a[mt], bfr[nt][0], bfr[nt][1]);
+          for (int mt = 0; mt < CV_MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT / 2; ++nt)
+              mma_bf16(acc[mt][h * NT / 2 + nt], a[mt], bfr[nt][0],
+                       bfr[nt][1]);
+        }
+      } else {
+        uint32_t bfr[NT][2];
+        load_b<NT>(bfr, wbase + 16 * c * WLD * 2);
+#pragma unroll
+        for (int mt = 0; mt < CV_MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[mt][nt], a[mt], bfr[nt][0], bfr[nt][1]);
+      }
     }
     __syncthreads();  // this buffer's readers are done before it refills
   }
@@ -352,14 +392,14 @@ conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
 
 int round8(int n) { return (n + 7) / 8 * 8; }
 
-template <int MODE, int NT>
+template <int MODE, int NT, int TZ>
 int launch_conv(const void* x, const void* wpk, const void* bias, void* y,
                 int B, int SD, int SH, int SW, int GD, int GH, int GW, int YD,
                 int YH, int YW, int Cin, int Cy, int n_classes,
                 const TapTable& table, cudaStream_t s) {
   constexpr int BN = 8 * NT;
-  constexpr int smem = cv_smem_bytes<MODE, NT>();
-  auto kernel = conv3d_k3_mma_kernel<MODE, NT>;
+  constexpr int smem = cv_smem_bytes<MODE, NT, TZ>();
+  auto kernel = conv3d_k3_mma_kernel<MODE, NT, TZ>;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -368,11 +408,11 @@ int launch_conv(const void* x, const void* wpk, const void* bias, void* y,
   const int NP = round8(Cy);
   const int tiles_x = (GW + CV_TX - 1) / CV_TX,
             tiles_y = (GH + CV_TY - 1) / CV_TY,
-            tiles_z = (GD + CV_TZ - 1) / CV_TZ;
+            tiles_z = (GD + TZ - 1) / TZ;
   const int n_blocks_n = (NP + BN - 1) / BN;
   const int vec = (Cin % 8) == 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0;
   dim3 grid(tiles_x * tiles_y * tiles_z, B, n_classes * n_blocks_n);
-  kernel<<<grid, CV_THREADS, smem, s>>>(
+  kernel<<<grid, cv_threads<TZ>(), smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wpk),
       static_cast<const float*>(bias), static_cast<bf16*>(y), SD, SH, SW, YD,
       YH, YW, Cin, round8(Cin), Cy, NP, tiles_x, tiles_y, n_blocks_n, vec,
@@ -381,15 +421,15 @@ int launch_conv(const void* x, const void* wpk, const void* bias, void* y,
 }
 
 // n-tiles of a block for Cy output channels: all of them up to 64
-template <int MODE>
+template <int MODE, int TZ = CV_TZ>
 int dispatch_conv(const void* x, const void* wpk, const void* bias, void* y,
                   int B, int SD, int SH, int SW, int GD, int GH, int GW,
                   int YD, int YH, int YW, int Cin, int Cy, int n_classes,
                   const TapTable& table, cudaStream_t s) {
   const int np = round8(Cy);
 #define DA_CONV(NT)                                                          \
-  launch_conv<MODE, NT>(x, wpk, bias, y, B, SD, SH, SW, GD, GH, GW, YD, YH, \
-                        YW, Cin, Cy, n_classes, table, s)
+  launch_conv<MODE, NT, TZ>(x, wpk, bias, y, B, SD, SH, SW, GD, GH, GW, YD, \
+                            YH, YW, Cin, Cy, n_classes, table, s)
   if (np <= 8) return DA_CONV(1);
   if (np <= 16) return DA_CONV(2);
   if (np <= 32) return DA_CONV(4);
@@ -721,6 +761,31 @@ int conv3d_k3_mma(const void* x, const void* wpk, const void* bias, void* y,
                                  Ho, Wo, Cin, Cout, 1, none, s);
   return dispatch_conv<kFwdS1>(x, wpk, bias, y, B, D, H, W, D, H, W, D, H, W,
                                Cin, Cout, 1, none, s);
+}
+
+// Kernel K: the stride-1 conv without bias, p_blk (1..8) output planes a
+// tile (A's kernel with a tile p_blk planes deep; p_blk 2 is A's own
+// instance); x, wpk and y as for conv3d_k3_mma.
+int conv3d_k3_block_mma(const void* x, const void* wpk, void* y, int B, int D,
+                        int H, int W, int Cin, int Cout, int p_blk,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TapTable none = {};
+#define DA_BLOCK(TZ)                                                       \
+  dispatch_conv<kFwdS1, TZ>(x, wpk, nullptr, y, B, D, H, W, D, H, W, D, H, \
+                            W, Cin, Cout, 1, none, s)
+  switch (p_blk) {
+    case 1: return DA_BLOCK(1);
+    case 2: return DA_BLOCK(2);
+    case 3: return DA_BLOCK(3);
+    case 4: return DA_BLOCK(4);
+    case 5: return DA_BLOCK(5);
+    case 6: return DA_BLOCK(6);
+    case 7: return DA_BLOCK(7);
+    case 8: return DA_BLOCK(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DA_BLOCK
 }
 
 // The input gradient of the stride-2 conv: g is (B, ceil(D/2), ceil(H/2),

@@ -35,11 +35,30 @@
 //   * any other row (the registration step's one float32 channel, odd
 //     widths): one thread per point, looping over the channels.
 //
+// The grid gradient (12 + 2 C elem + 12 bytes a point) takes the same
+// layouts by row width, with 32-bit corner offsets where a sample's volume
+// allows them and the sample from the grid's y index, not a 64-bit
+// division:
+//
+//   * rows under 16 bytes (the registration step's one float32 channel):
+//     one thread a point.  The kernel is bound by its instructions there:
+//     with 64-bit offsets it took 0.111 ms at 1x168x200x168, with 32-bit
+//     ones 0.080 (NVIDIA H100 80GB HBM3, 700.00 W,
+//     tools/bench_warp_torch.py);
+//   * 16-byte chunks a lane (the anatomy's 32 channels): E's layout
+//     without its corner shuffles, each lane's partial sums over its chunk
+//     added across the point's lanes by xor shuffles in a fixed order, so
+//     the result repeats bit for bit;
+//   * other widths: one thread a point with 64-bit offsets, as before.
+//
 // The splat is deterministic: it adds in 64-bit integer fixed point, whose
 // addition is associative, so every output element is the same sum in
 // whatever order the atomics land, bit for bit from run to run.  Three
 // passes: a pre-pass takes each channel's max |ct| (atomicMax on the bit
-// patterns of non-negative floats, which order as integers); that fixes a
+// patterns of non-negative floats, which order as integers; the splat of
+// ones, whose max the caller knows, skips it and reads no cotangent: the
+// same scale, so the same bits as the general path on a tensor of ones);
+// that fixes a
 // power-of-two scale 2^e per channel with P max|ct| 2^e <= 2^62, P the
 // points of one sample (each point adds weight <= 1 at most once to a
 // voxel), so no sum can overflow; the scatter adds round(fl(w_k ct) 2^e)
@@ -249,6 +268,156 @@ warp_grid_grad_kernel(const T* __restrict__ vol,
   o[2] = gz * s.sz;
 }
 
+// The grid gradient's sample point in 32-bit element offsets (a sample's
+// volume holds fewer than 2^31 elements: the dispatch checks): the axes,
+// corner 0's offset and the in-bounds mask (bit k for corner k).  Corner k
+// is corner 0 plus delta[k] (corner_deltas32).
+__device__ __forceinline__ void point32(const float* __restrict__ g,
+                                        const Dims& s, Axis& ax, Axis& ay,
+                                        Axis& az, int& off0,
+                                        unsigned& mask) {
+  ax = axis_of(g[0], s.sx, s.w);
+  ay = axis_of(g[1], s.sy, s.h);
+  az = axis_of(g[2], s.sz, s.d);
+  off0 = ((az.i0 * s.h + ay.i0) * s.w + ax.i0) * s.c;
+  const unsigned mx = ax.in0 | (ax.in1 << 1), my = ay.in0 | (ay.in1 << 1),
+                 mz = az.in0 | (az.in1 << 1);
+  mask = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    mask |= ((mx >> (k & 1)) & (my >> ((k >> 1) & 1)) & (mz >> (k >> 2)) &
+             1u) << k;
+}
+
+__device__ __forceinline__ void corner_deltas32(const Dims& s, int* delta) {
+  const int wc = s.w * s.c, hwc = wc * s.h;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    delta[k] = (k >> 2) * hwc + ((k >> 1) & 1) * wc + (k & 1) * s.c;
+}
+
+// The grid gradient where a point's row is under 16 bytes (the
+// registration step's one float32 channel): one thread a point, the sample
+// from the grid's y index (no 64-bit division) and 32-bit corner offsets.
+// The sums are warp_grid_grad_kernel's, in its order.  (Staging the
+// 12-byte coordinate records through shared memory as 16-byte words, four
+// points a thread, and taking the W neighbour's corners by shuffles were
+// each slower here, 0.119-0.128 against 0.111 ms with 64-bit offsets on
+// the same card and tool: the kernel is bound by its instructions, and
+// the corner reads hit L1.)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+grid_grad_points_kernel(const T* __restrict__ vol,
+                        const float* __restrict__ grid,
+                        const T* __restrict__ ct, float* __restrict__ dgrid,
+                        Dims s) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= s.points) return;
+  const long long p = static_cast<long long>(blockIdx.y) * s.points + i;
+  const T* vb = vol + static_cast<long long>(blockIdx.y) * s.d * s.h * s.w *
+                          s.c;
+  Axis ax, ay, az;
+  int off0, delta[8];
+  unsigned mask;
+  point32(grid + 3 * p, s, ax, ay, az, off0, mask);
+  corner_deltas32(s, delta);
+  const T* cp = ct + p * s.c;
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  for (int ch = 0; ch < s.c; ++ch) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = (mask >> k) & 1u ? to_float(vb[off0 + delta[k] + ch]) : 0.0f;
+    float dx, dy, dz;
+    corner_derivatives(az, ay, ax, v, dx, dy, dz);
+    const float cv = to_float(cp[ch]);
+    gx += cv * dx;
+    gy += cv * dy;
+    gz += cv * dz;
+  }
+  float* o = dgrid + 3 * p;
+  o[0] = gx * s.sx;
+  o[1] = gy * s.sy;
+  o[2] = gz * s.sz;
+}
+
+// The grid gradient where a row is lanes 16-byte chunks (lanes a power of
+// two up to 32, the tensors 16-byte aligned; the anatomy's 32 channels):
+// E's layout.  Each lane holds one chunk of a point's row, the warp 32 /
+// lanes consecutive points of one sample (blockIdx.y); the lanes of a
+// point compute its corners alike and read their 8 corner chunks with
+// 16-byte loads (taking the W neighbour's 4 shared chunks by shuffles, as
+// E does, was slower here: 0.659 against 0.620 ms at 32 bf16 channels,
+// NVIDIA H100 80GB HBM3, 700.00 W, tools/bench_warp_torch.py); each lane
+// sums ct * d out / d coordinate over its chunk's
+// channels in channel order, and the point's lanes add their three partial
+// sums by xor shuffles, halving the distance each time: a fixed order, so
+// the result repeats bit for bit, and every lane of the point ends with
+// the same sums.  The point's first lane writes them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+grid_grad_rows_kernel(const T* __restrict__ vol,
+                      const float* __restrict__ grid,
+                      const T* __restrict__ ct, float* __restrict__ dgrid,
+                      Dims s, int lanes) {
+  constexpr int V = Chunk<T>::kN;
+  const int lane = threadIdx.x & 31;
+  const int per_block = kThreads / lanes;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * per_block + threadIdx.x / lanes;
+  // whole warps only: the shuffles need every lane
+  if (i - lane / lanes >= s.points) return;
+  const bool valid = i < s.points;
+  const long long p = static_cast<long long>(blockIdx.y) * s.points + i;
+  const int c0 = (threadIdx.x & (lanes - 1)) * V;
+  Axis ax{}, ay{}, az{};
+  int off0 = 0, delta[8];
+  unsigned mask = 0;
+  if (valid) point32(grid + 3 * p, s, ax, ay, az, off0, mask);
+  corner_deltas32(s, delta);
+  const T* vb = vol + static_cast<long long>(blockIdx.y) * s.d * s.h * s.w *
+                          s.c + off0 + c0;
+  uint4 raw[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    raw[k] = (mask >> k) & 1u
+                 ? __ldg(reinterpret_cast<const uint4*>(vb + delta[k]))
+                 : make_uint4(0, 0, 0, 0);
+  float cv[V];
+  if (valid)
+    load_chunk(ct + p * s.c + c0, cv);
+  else
+#pragma unroll
+    for (int c = 0; c < V; ++c) cv[c] = 0.0f;
+  float vals[8][V];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) unpack_chunk<T>(raw[k], vals[k]);
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = vals[k][c];
+    float dx, dy, dz;
+    corner_derivatives(az, ay, ax, v, dx, dy, dz);
+    gx += cv[c] * dx;
+    gy += cv[c] * dy;
+    gz += cv[c] * dz;
+  }
+  for (int o = lanes / 2; o >= 1; o >>= 1) {
+    gx += __shfl_xor_sync(kFullMask, gx, o);
+    gy += __shfl_xor_sync(kFullMask, gy, o);
+    gz += __shfl_xor_sync(kFullMask, gz, o);
+  }
+  if (valid && c0 == 0) {
+    float* o = dgrid + 3 * p;
+    o[0] = gx * s.sx;
+    o[1] = gy * s.sy;
+    o[2] = gz * s.sz;
+  }
+}
+
 // ------------------------------------------------------------ the splat
 
 // The exponent e of a channel's fixed-point scale 2^e, from the bits of its
@@ -387,6 +556,7 @@ constexpr int kSparse = 2 * 32;
 // A point that does not exist: its corner 0 offset matches no neighbour's.
 constexpr long long kNoPoint = -(1LL << 62);
 
+
 // The scatter with one thread per point (a row under 16 bytes): each lane
 // takes its left neighbour's dx = 1 terms by a shuffle.  The cotangents are
 // loaded first, so that their loads overlap the grid's.
@@ -404,7 +574,9 @@ splat_points_kernel(const T* __restrict__ ct, const float* __restrict__ grid,
   float cvs[8];
 #pragma unroll
   for (int ch = 0; ch < 8; ++ch)
-    cvs[ch] = valid && ch < s.c ? to_float(ct[p * s.c + ch]) : 0.0f;
+    cvs[ch] = valid && ch < s.c
+                  ? (ct == nullptr ? 1.0f : to_float(ct[p * s.c + ch]))
+                  : 0.0f;
   long long off0 = kNoPoint, delta[8];
   unsigned mask = 0;
   float wgt[8];
@@ -615,6 +787,38 @@ int warp_fwd(const T* vol, const float* grid, T* out, const Dims& s,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The grid gradient's layout by row width, as the warp's: rows under 16
+// bytes one thread a point, 16-byte chunks a lane each, other widths one
+// thread a point with the channels in a loop.
+template <typename T>
+int grid_grad(const T* vol, const float* grid, const T* ct, float* dgrid,
+              const Dims& s, int b, cudaStream_t stream) {
+  constexpr int V = Chunk<T>::kN;
+  const int lanes = s.c / V;
+  // 32-bit corner offsets: a sample's volume under 2^31 elements, with a
+  // margin for the corners of points just outside it
+  const bool small =
+      static_cast<long long>(s.d + 2) * (s.h + 2) * (s.w + 2) * s.c <
+      (1LL << 31);
+  if (small && s.c * static_cast<int>(sizeof(T)) < 16) {
+    const dim3 blocks(
+        static_cast<unsigned>((s.points + kThreads - 1) / kThreads), b);
+    grid_grad_points_kernel<T><<<blocks, kThreads, 0, stream>>>(
+        vol, grid, ct, dgrid, s);
+  } else if (small && s.c % V == 0 && lanes <= 32 &&
+             (lanes & (lanes - 1)) == 0 && aligned16(vol) && aligned16(ct)) {
+    const int per_block = kThreads / lanes;
+    const dim3 blocks(
+        static_cast<unsigned>((s.points + per_block - 1) / per_block), b);
+    grid_grad_rows_kernel<T><<<blocks, kThreads, 0, stream>>>(
+        vol, grid, ct, dgrid, s, lanes);
+  } else {
+    warp_grid_grad_kernel<T><<<blocks_for(s), kThreads, 0, stream>>>(
+        vol, grid, ct, dgrid, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 inline int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
 template <typename T>
@@ -624,6 +828,10 @@ int splat(const T* ct, const float* grid, float* dvol,
   int log2_points = 0;
   while ((1LL << log2_points) < s.points) ++log2_points;
   const long long n_ct = s.total * s.c;
+  // ct null: one channel of ones, whose max (1.0f) the caller put in
+  // maxbits; no pre-pass and no cotangent to read
+  const bool ones = ct == nullptr;
+  if (ones && s.c != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_ct > 0) {
     // a thread count whose chunks of V are a multiple of C, at most 4
     // blocks an SM
@@ -633,10 +841,11 @@ int splat(const T* ct, const float* grid, float* dvol,
         (n_ct + static_cast<long long>(kThreads) * V - 1) / (kThreads * V),
         528LL);
     blocks = (blocks + unit - 1) / unit * unit;
-    splat_absmax_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                             stream>>>(ct, n_ct, s.c,
-                                       n_ct % V == 0 && aligned16(ct),
-                                       maxbits);
+    if (!ones)
+      splat_absmax_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               stream>>>(ct, n_ct, s.c,
+                                         n_ct % V == 0 && aligned16(ct),
+                                         maxbits);
     if (s.c * static_cast<int>(sizeof(T)) < 16) {
       splat_points_kernel<T><<<blocks_for(s), kThreads, 0, stream>>>(
           ct, grid, acc, maxbits, s, log2_points);
@@ -663,8 +872,9 @@ int splat(const T* ct, const float* grid, float* dvol,
 // C entry points.  Pointers are device pointers of contiguous tensors:
 // vol / out / ct / dvol (B, D, H, W, C) resp. (B, Do, Ho, Wo, C), grid and
 // dgrid (B, Do, Ho, Wo, 3) float32; the splat's scratch: acc (B, D, H, W,
-// C) int64 and maxbits (C,) int32, both zero on entry.  Each returns
-// cudaGetLastError().
+// C) int64, zero on entry, and maxbits (C,) int32, zero on entry; a null
+// ct is one channel of ones, with maxbits holding the bits of 1.0f.  Each
+// returns cudaGetLastError().
 extern "C" {
 
 int warp_trilinear(int dtype, const void* vol, const float* grid, void* out,
@@ -685,16 +895,11 @@ int warp_grid_grad(int dtype, const void* vol, const float* grid,
   const da::Dims s = da::make_dims(b, d, h, w, c, od, oh, ow);
   if (s.total == 0) return 0;
   if (dtype == da::kFloat32)
-    da::warp_grid_grad_kernel<float>
-        <<<da::blocks_for(s), da::kThreads, 0, stream>>>(
-            static_cast<const float*>(vol), grid,
-            static_cast<const float*>(ct), dgrid, s);
-  else
-    da::warp_grid_grad_kernel<__nv_bfloat16>
-        <<<da::blocks_for(s), da::kThreads, 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(vol), grid,
-            static_cast<const __nv_bfloat16*>(ct), dgrid, s);
-  return static_cast<int>(cudaGetLastError());
+    return da::grid_grad(static_cast<const float*>(vol), grid,
+                         static_cast<const float*>(ct), dgrid, s, b, stream);
+  return da::grid_grad(static_cast<const __nv_bfloat16*>(vol), grid,
+                       static_cast<const __nv_bfloat16*>(ct), dgrid, s, b,
+                       stream);
 }
 
 int splat_trilinear(int dtype, const void* ct, const float* grid, float* dvol,

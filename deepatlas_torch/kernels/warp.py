@@ -79,6 +79,10 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 # ------------------------------------------------------- plain versions
 
 def _corners(grid: torch.Tensor, d: int, h: int, w: int):
@@ -119,8 +123,12 @@ def _warp_math(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return out.reshape(*grid.shape[:4], c).to(vol.dtype)
 
 
-def _splat_math(ct: torch.Tensor, grid: torch.Tensor,
+def _splat_math(ct: Optional[torch.Tensor], grid: torch.Tensor,
                 dhw: Sequence[int]) -> torch.Tensor:
+    """The plain splat; ``ct`` None is one channel of ones."""
+    if ct is None:
+        ct = torch.ones(*grid.shape[:4], 1, dtype=torch.float32,
+                        device=grid.device)
     b, c = ct.shape[0], ct.shape[-1]
     d, h, w = dhw
     flat = ct.reshape(-1, c).float()
@@ -195,18 +203,26 @@ def _grid_grad_cuda(vol, grid, ct):
     return dgrid
 
 
+# the bits of 1.0f: the max |ct| of the splat of ones
+_ONE_BITS = 0x3F800000
+
+
 def _splat_cuda(ct, grid, dhw):
-    b, c = ct.shape[0], ct.shape[-1]
-    dvol = torch.empty(b, *dhw, c, dtype=torch.float32, device=ct.device)
+    """Kernel G; ``ct`` None is one channel of ones (no max pass, no
+    cotangent read)."""
+    b, c = grid.shape[0], 1 if ct is None else ct.shape[-1]
+    dvol = torch.empty(b, *dhw, c, dtype=torch.float32, device=grid.device)
     # the kernel's scratch: the fixed-point sums and each channel's max |ct|
-    acc = torch.zeros(b, *dhw, c, dtype=torch.int64, device=ct.device)
-    maxbits = torch.zeros(c, dtype=torch.int32, device=ct.device)
+    acc = torch.zeros(b, *dhw, c, dtype=torch.int64, device=grid.device)
+    maxbits = torch.full((c,), 0 if ct is not None else _ONE_BITS,
+                         dtype=torch.int32, device=grid.device)
+    dtype = torch.float32 if ct is None else ct.dtype
     lib = build.load("warp", _SIGNATURES)
-    with torch.cuda.device(ct.device):
-        rc = lib.splat_trilinear(_DTYPES[ct.dtype], ct.data_ptr(),
-                                 grid.data_ptr(), dvol.data_ptr(),
-                                 acc.data_ptr(), maxbits.data_ptr(),
-                                 *_dims(b, dhw, c, grid), _stream(ct))
+    with torch.cuda.device(grid.device):
+        rc = lib.splat_trilinear(_DTYPES[dtype], _ptr(ct), grid.data_ptr(),
+                                 dvol.data_ptr(), acc.data_ptr(),
+                                 maxbits.data_ptr(),
+                                 *_dims(b, dhw, c, grid), _stream(grid))
     build.check(rc, "splat_trilinear")
     splat_trilinear.launches += 1
     return dvol
@@ -303,6 +319,28 @@ def splat_trilinear(ct: torch.Tensor, grid: torch.Tensor,
 splat_trilinear.launches = 0
 
 
+def splat_ones(grid: torch.Tensor, dhw: Sequence[int]) -> torch.Tensor:
+    """``splat_trilinear`` of a one-channel cotangent of ones at ``grid``'s
+    points, without that tensor: the total corner weight each voxel
+    receives, ``(B, D, H, W, 1)`` float32.  On the card the kernel knows the
+    channel's max (1.0) and so skips its max pass and reads no cotangent;
+    the scale, and so every bit of the result, is that of the general path
+    on a tensor of ones.  One launch of kernel G, counted in
+    ``splat_trilinear.launches``."""
+    if grid.dim() != 5 or grid.shape[-1] != 3:
+        raise ValueError(f"splat_ones: expected a (B, Do, Ho, Wo, 3) grid, "
+                         f"got {tuple(grid.shape)}")
+    if grid.dtype != torch.float32 or not grid.is_contiguous():
+        raise ValueError(f"splat_ones: the grid must be contiguous float32, "
+                         f"got {grid.dtype}")
+    if grid.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"splat_ones: unsupported device {grid.device}")
+    dhw = tuple(int(n) for n in dhw)
+    if grid.device.type == "cpu":
+        return _splat_math(None, grid, dhw)
+    return _splat_cuda(None, grid, dhw)
+
+
 # ------------------------------------------------- differentiable entry
 
 class _GridSample(torch.autograd.Function):
@@ -362,6 +400,7 @@ def grid_sample(vol: torch.Tensor, grid: torch.Tensor, *,
                              grad == "full")
 
 
-__all__ = ["grid_sample", "splat_trilinear", "splat_trilinear_plain",
+__all__ = ["grid_sample", "splat_ones", "splat_trilinear",
+           "splat_trilinear_plain",
            "warp_grid_grad", "warp_grid_grad_plain", "warp_trilinear",
            "warp_trilinear_plain"]

@@ -154,6 +154,51 @@ def test_binned_sum_matches_jax_and_bincount(rng):
                                   np.where(inside, lab, 0).astype(np.float32))
 
 
+@pytest.mark.parametrize("n_class,n,spread", [(2, 1000, 1.0),
+                                               (NC, 4097, 1e3),
+                                               (33, 20000, 1e-20)])
+def test_binned_sum_is_the_same_bits_in_any_order(rng, n_class, n, spread):
+    """The fixed-point sums do not depend on the order of the elements:
+    under three permutations of values and labels (the order in which the
+    card's atomics may land) the sums are equal bit for bit, and equal to
+    the float64 sums within one float32 rounding and 2^-e a term (2^-52 of
+    n times the largest value), and to the JAX ``binned_sum`` (a chunked
+    one-hot matrix product) within 1e-6; values of both signs over a wide
+    range of magnitudes."""
+    v = ((rng.rand(n) * 2 - 1) * np.exp(rng.randn(n) * 3) * spread).astype(
+        np.float32)
+    lab = rng.randint(-1, n_class + 1, n).astype(np.int64)
+    got = binned_sum(t(v), t(lab), n_class)
+    for _ in range(3):
+        order = rng.permutation(n)
+        again = binned_sum(t(v[order]), t(lab[order]), n_class)
+        assert torch.equal(again, got)
+    exact = np.array([v[lab == c].astype(np.float64).sum()
+                      for c in range(n_class)])
+    total = np.abs(v).max() * n
+    np.testing.assert_allclose(got.numpy(), exact, rtol=2 ** -23,
+                               atol=total * 2.0 ** -51)
+    jax_sums = np.asarray(jax_binned_sum(jnp.asarray(v), jnp.asarray(lab),
+                                         n_class, chunk=512))
+    np.testing.assert_allclose(got.numpy(), jax_sums, rtol=1e-6,
+                               atol=1e-6 * np.abs(jax_sums).max())
+
+
+def test_binned_sum_of_a_nonfinite_value_is_nan(rng):
+    """A NaN makes its own class's sum NaN; the other classes keep their
+    sums (their scale comes from the finite values), and a non-finite value
+    under a label outside [0, n_class) counts nowhere."""
+    v = rng.rand(200).astype(np.float32)
+    lab = rng.randint(0, NC, 200).astype(np.int64)
+    lab[7] = NC
+    clean = binned_sum(t(v), t(lab), NC).numpy()
+    v[[3, 7]] = [np.nan, np.inf]
+    got = binned_sum(t(v), t(lab), NC).numpy()
+    assert np.isnan(got[lab[3]])
+    keep = np.arange(NC) != lab[3]
+    np.testing.assert_array_equal(got[keep], clean[keep])
+
+
 @pytest.mark.parametrize("fused_grad", [False, True],
                          ids=["matched_grid_grad", "fused"])
 @pytest.mark.parametrize("case,b,amp", [("smooth", 1, 2.5),

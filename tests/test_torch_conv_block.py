@@ -226,10 +226,13 @@ def test_block_tool_runs_on_cpu(capsys):
          "--iters", "1", "--p-blks", "2", "3"])
     rows = out["rows"]
     assert len(rows) == 13 and sum(r["n"] for r in rows) == 14
-    # per shape: A once as the reference and twice timed; K once checked
-    # and twice timed at each p_blk
-    assert out["calls"] == {"conv3d_k3": 39, "conv3d_k3_block": 78}
+    # per shape: A once as the reference and timed in turns (twice a warm
+    # call and one timed call); K once checked and timed in turns at each
+    # p_blk; no CUDA-core K on the CPU
+    assert out["calls"] == {"conv3d_k3": 65, "conv3d_k3_block": 130}
     assert all(set(r["k_ms"]) == {2, 3} for r in rows)
+    assert all(set(r["k_simt_ms"].values()) == {None} for r in rows)
+    assert all(len(r["a_sha256"]) == 64 for r in rows)
     assert all(max(r["max_abs_diff_vs_a"].values()) <= 1e-2 * r["max_abs_a"]
                for r in rows)
     assert set(out["totals"]["k_ms"]) == {2, 3}

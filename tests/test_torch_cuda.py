@@ -938,3 +938,146 @@ def test_mix_kernels_follow_the_type_on_card(cuda, dtype):
     want = "mma" if dtype == torch.bfloat16 else "simt"
     assert seen[want] == (2, 2)
     assert seen["simt" if want == "mma" else "mma"] == (0, 0)
+
+
+# --------------------------- kernel K on the tensor cores; F and G's ones
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout", [((1, 7, 9, 33), 1, 3),
+                                            ((2, 10, 13, 40), 16, 64),
+                                            ((1, 12, 5, 21), 64, 72),
+                                            ((1, 21, 25, 21), 64, 64)])
+def test_mma_block_p_blk_2_is_a_and_reruns_on_card(cuda, shape, cin, cout):
+    """Kernel K in bfloat16 runs on the tensor cores: at p_blk 2 it is
+    kernel A's own instance, equal to ``conv3d_k3`` bit for bit; at every
+    p_blk two calls give the same bits (no atomics) and match A within one
+    bf16 rounding."""
+    from deepatlas_torch.kernels import conv3d_k3, conv3d_k3_block
+
+    rng = np.random.RandomState(232)
+    x = torch.from_numpy(rng.randn(*shape, cin).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, 3, cin, cout)
+                          / np.sqrt(27 * cin)).astype(np.float32)).to(cuda)
+    a = conv3d_k3(x, w)
+    for p_blk in range(1, 9):
+        got = conv3d_k3_block(x, w, p_blk=p_blk)
+        again = conv3d_k3_block(x, w, p_blk=p_blk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        if p_blk == 2:
+            assert torch.equal(got, a)
+        err = (got.float() - a.float()).abs().max().item()
+        assert err <= 1e-2 * a.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_blk", [2, 4, 8])
+def test_mma_block_at_full_width_on_card(cuda, p_blk):
+    """K at UNet_light's widest 64-channel level (42x50x42), in bfloat16
+    against its plain version."""
+    from deepatlas_torch.kernels import conv3d_k3_block, conv3d_k3_block_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(233)
+    x = (torch.rand((1, 42, 50, 42, 64), generator=gen, device=cuda) * 2
+         - 1).to(torch.bfloat16)
+    w = torch.randn((3, 3, 3, 64, 64), generator=gen, device=cuda) / 40.0
+    got = conv3d_k3_block(x, w, p_blk=p_blk)
+    ref = conv3d_k3_block_plain(x, w, p_blk=p_blk)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 8, 32, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("amplitude", [2.0, 8.0])
+def test_grid_grad_rerun_is_bit_identical_on_card(cuda, c, dtype, amplitude):
+    """Kernel F has no atomics and adds a point's lanes in a fixed order:
+    three calls give the same bits, in every layout (one thread a point at
+    C = 1 and 2, 16-byte chunks a lane at 8 and 32, one thread a point at
+    33), on a field of 2 voxels and one of noise up to 8; each matches the
+    plain version within 1e-4 of its largest entry."""
+    from deepatlas_torch import kernels
+
+    shape = (2, 11, 14, 37)
+    vol, grid, ct = _warp_inputs(cuda, shape, c, dtype, amplitude)
+    outs = [kernels.warp_grid_grad(vol, grid, ct) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = kernels.warp_grid_grad_plain(vol, grid, ct)
+    err = (outs[0] - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_grad_unaligned_and_odd_grids_on_card(cuda, dtype):
+    """F where its fast layouts do not apply or their edges show: 32
+    channels in tensors that are not 16-byte aligned (one thread a point),
+    and one channel on a grid whose samples' point counts leave a block's
+    coordinate records unaligned (batch 3 of 7x5x3 points: the 16-byte
+    staging falls back to words)."""
+    from deepatlas_torch import kernels
+
+    shape = (1, 9, 10, 21)
+    vol, grid, ct = _warp_inputs(cuda, shape, 33, dtype, 3.0)
+    vol, ct = vol[..., 1:], ct[..., 1:]         # 32 channels, offset 1
+    assert not vol.is_contiguous()
+    vol, ct = (torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:]
+               .view(t.shape).copy_(t) for t in (vol, ct))
+    assert vol.data_ptr() % 16 and vol.is_contiguous()
+    got = kernels.warp_grid_grad(vol, grid, ct)
+    ref = kernels.warp_grid_grad_plain(vol, grid, ct)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    vol, grid, ct = _warp_inputs(cuda, (3, 6, 8, 10), 1, dtype, 0.0,
+                                 out_shape=(7, 5, 3))
+    got = kernels.warp_grid_grad(vol, grid, ct)
+    ref = kernels.warp_grid_grad_plain(vol, grid, ct)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amplitude", [2.5, 20.0])
+def test_splat_ones_is_the_general_path_on_card(cuda, amplitude):
+    """``splat_ones`` (no max pass, no cotangent read) gives the bits of
+    ``splat_trilinear`` on a tensor of ones, again on a rerun, counted as
+    one launch of G; batch 2, a clamped field."""
+    from deepatlas_torch import kernels
+    from deepatlas_torch.ops import clamp_displacement
+
+    shape = (2, 13, 17, 30)
+    _, grid, _ = _warp_inputs(cuda, shape, 1, torch.float32, amplitude)
+    grid = clamp_displacement(grid, 8).contiguous()
+    before = kernels.splat_trilinear.launches
+    got = kernels.splat_ones(grid, shape[1:])
+    assert kernels.splat_trilinear.launches == before + 1
+    again = kernels.splat_ones(grid, shape[1:])
+    ref = kernels.splat_trilinear(torch.ones(*shape, 1, device=cuda), grid,
+                                  shape[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_binned_sum_repeats_on_card(cuda):
+    """The anatomy dice's per-class sums: the same bits again and with the
+    elements in another order (int64 atomics), within 1e-6 of float64."""
+    from deepatlas_torch.kernels import binned_sum
+
+    gen = torch.Generator(device=cuda).manual_seed(234)
+    lab = torch.randint(-1, 34, (1, 40, 50, 60), generator=gen, device=cuda)
+    vals = torch.rand(lab.shape, generator=gen, device=cuda)
+    got = binned_sum(vals, lab, 32)
+    order = torch.randperm(lab.numel(), generator=gen, device=cuda)
+    assert torch.equal(got, binned_sum(vals, lab, 32))
+    assert torch.equal(got, binned_sum(vals.reshape(-1)[order],
+                                       lab.reshape(-1)[order], 32))
+    keep = (lab >= 0) & (lab < 32)
+    exact = torch.zeros(32, dtype=torch.float64, device=cuda).index_add_(
+        0, lab[keep], vals[keep].double())
+    assert ((got.double() - exact).abs().max() / exact.abs().max()).item() \
+        <= 1e-6

@@ -20,11 +20,21 @@ way the kernels do it:
   points walked by the warp, a channel a lane, the max pre-pass's chunks
   and channels, the conversion's 4 elements a thread -- every (point,
   channel) read or written exactly once at C in {1, 2, 3, 5, 8, 16, 32,
-  33}, in both types, on a ragged point count.
+  33}, in both types, on a ragged point count;
+* G's splat of ones: the known max of 1.0 in place of the max pass gives
+  the general path's int64 sums on a tensor of ones, bit for bit;
+* F, the grid gradient, in its layouts by row width (one thread a point
+  under 16 bytes, a lane a 16-byte chunk with the point's partial sums
+  added by xor shuffles in a fixed order, one thread a point at odd
+  widths): the derivatives of the corner weights in the kernels' order,
+  every lane of a point ending with the same sums, each point read and
+  written once at C in {1, 2, 8, 32, 33}, in both types, batch 2 with
+  ragged point counts.
 
 The mirror is held against the plain versions (``splat_trilinear_plain``,
-``warp_trilinear_plain``) and, in float32, against the JAX package (the
-XLA composition's values VJP, and the Pallas splat in interpret mode).
+``warp_trilinear_plain``, ``warp_grid_grad_plain``) and, in float32,
+against the JAX package (the XLA composition's values VJP, the Pallas
+splat and the Pallas grid gradient in interpret mode).
 The same numpy inputs go to both packages.  Tolerance of the splat against
 a float32 sum: 1e-6 of the output's range (the fixed-point sum is exact to
 ``2^-e`` a term, ``2^-38`` of the channel's max at 5.6 M points; a float32
@@ -34,13 +44,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deepatlas_tpu import ops as jops
 from deepatlas_tpu.ops.warp import warp_values_adjoint
 from deepatlas_tpu.pallas import pallas_grid_sample
-from deepatlas_torch.kernels import (splat_trilinear, splat_trilinear_plain,
-                                     warp_trilinear, warp_trilinear_plain)
+from deepatlas_torch.kernels import (splat_ones, splat_trilinear,
+                                     splat_trilinear_plain, warp_grid_grad,
+                                     warp_grid_grad_plain, warp_trilinear,
+                                     warp_trilinear_plain)
 
 THREADS = 256           # kThreads in csrc/trilinear.cuh
 CHANNELS = (1, 2, 3, 5, 8, 16, 32, 33)
@@ -609,10 +622,232 @@ def test_bench_tool_runs_on_the_cpu():
                      "--iters", "1", "--fields", "smooth", "--seg-step"])
     assert out["device"] == "cpu" and out["nvidia_smi"] is None
     assert {(r["case"], r["kernel"]) for r in out["rows"]} == {
-        (case, k) for case, *_ in tool.CASES for k in tool.KERNELS}
+        (case, k) for case, *_ in tool.CASES for k in tool.KERNELS} | {
+        ("c1_float32", "splat_ones")}
     for r in out["rows"]:
         assert r["device_ms"] is None and r["held_mb"] is None
         assert r["finite"] and r["bit_identical_rerun"]
         assert r["bound_ms"] > 0
     assert set(out["seg_step"]) == {"soft", "f_hard", "m_hard", "hard"}
     assert all(v["device_busy_ms"] is None for v in out["seg_step"].values())
+
+
+# ------------------------------------------------- G, the splat of ones
+
+def test_splat_of_ones_is_the_general_path_bit_for_bit(rng):
+    """The splat of ones skips the max pass and reads no cotangent: the
+    kernel takes the bits of 1.0 as the channel's max and 1.0 as every
+    cotangent.  Its terms and int64 sums are those of the general path on
+    a tensor of ones, bit for bit (the max pass over ones gives the same
+    bits), at batch 2 on a smooth and a saturated field; the wrapper on the
+    CPU is the plain splat of a tensor of ones."""
+    dhw, b = (6, 9, 35), 2
+    for amplitude in (1.0, 9.0):
+        grid = grid_of(rng, b, dhw, amplitude)
+        ones = np.ones((b, *dhw, 1), np.float32)
+        general, bits, e = splat_direct(ones, grid, dhw)
+        assert bits[0] == np.float32(1.0).view(np.uint32)
+        off0, mask, wgt = corners(grid, dhw, 1)
+        known = np.array([0x3F800000], np.uint32)
+        ek = exponent(known, log2_ceil(int(np.prod(dhw))))
+        scale = np.ldexp(np.float32(1), ek).astype(np.float32)
+        val = np.rint((wgt * np.float32(1.0) * scale).astype(
+            np.float32)).astype(np.int64)
+        val = np.where(mask, val, 0)
+        addr = off0[:, None] + deltas(dhw, 1)[None, :]
+        acc = issued_sums(list(zip(addr.reshape(-1), val.reshape(-1))),
+                          b * int(np.prod(dhw)))
+        np.testing.assert_array_equal(acc, general)
+        np.testing.assert_array_equal(ek, e)
+        np.testing.assert_array_equal(
+            to_float(acc, known, ek, 1).reshape(b, *dhw, 1),
+            splat_mirror(ones, grid, dhw))
+        got = splat_ones(torch.from_numpy(grid), dhw)
+        ref = splat_trilinear_plain(torch.from_numpy(ones),
+                                    torch.from_numpy(grid), dhw)
+        assert torch.equal(got, ref)
+
+
+# ----------------------------------------------- F, the grid gradient
+
+def gg_layout(c, elem):
+    """``grid_grad``'s choice: rows under 16 bytes one thread a point
+    (``points``), whole 16-byte chunks a lane (``rows``, lanes a power of
+    two up to 32), else one thread a point (``thread``)."""
+    v = 16 // elem
+    lanes = c // v
+    if c * elem < 16:
+        return "points", 1
+    if c % v == 0 and lanes <= 32 and lanes & (lanes - 1) == 0:
+        return "rows", lanes
+    return "thread", 1
+
+
+def corner_values(vol, grid):
+    """Per point (flattened over the batch) the 8 corners' values ``(P, 8,
+    C)`` (0 outside the volume) and the fractions ``(fz, fy, fx)``."""
+    b, d, h, w, c = vol.shape
+    g = grid.reshape(b, -1, 3)
+    fr = [axis_of(g[..., i], n)[1].reshape(-1)
+          for i, n in enumerate((w, h, d))]
+    off0, mask, _ = corners(grid, (d, h, w), c)
+    flat = vol.reshape(-1)
+    addr = off0[:, None] + deltas((d, h, w), c)[None, :]
+    idx = np.where(mask, addr, 0)[..., None] + np.arange(c)
+    vals = np.where(mask[..., None], flat[idx], np.float32(0))
+    return vals.astype(np.float32), (fr[2], fr[1], fr[0])
+
+
+def derivatives(v, fz, fy, fx):
+    """``corner_derivatives`` in float32 on ``(P, 8, ...)`` corner values:
+    the terms added in the kernel's order."""
+    one = np.float32(1)
+    wz, wy, wx = (one - fz, fz), (one - fy, fy), (one - fx, fx)
+    shape = (-1,) + (1,) * (v.ndim - 2)
+    dx = dy = dz = np.zeros(v[:, 0].shape, np.float32)
+    for i in range(2):
+        for j in range(2):
+            dx = dx + (wz[i] * wy[j]).reshape(shape) * (
+                v[:, 4 * i + 2 * j + 1] - v[:, 4 * i + 2 * j])
+            dy = dy + (wz[i] * wx[j]).reshape(shape) * (
+                v[:, 4 * i + 2 + j] - v[:, 4 * i + j])
+            dz = dz + (wy[i] * wx[j]).reshape(shape) * (
+                v[:, 4 + 2 * i + j] - v[:, 2 * i + j])
+    return dx, dy, dz
+
+
+def butterfly(parts):
+    """The lanes' partial sums ``(P, lanes)`` added by xor shuffles at
+    distances lanes / 2, ..., 1: what every lane holds at the end
+    ``(P, lanes)``."""
+    lanes = parts.shape[1]
+    o = lanes // 2
+    while o >= 1:
+        parts = (parts + parts[:, np.arange(lanes) ^ o]).astype(np.float32)
+        o //= 2
+    return parts
+
+
+def grid_grad_mirror(vol, grid, ct, elem):
+    """F as the kernels compute it, by ``gg_layout``: per point the sum
+    over channels of ct * the derivatives, in channel order, or per lane
+    over its 16-byte chunk and then across the point's lanes by the xor
+    butterfly; scaled by (n - 1) / 2 per axis.  Returns ``(B, Do, Ho, Wo,
+    3)`` and, for the rows layout, every lane's sums (all equal)."""
+    b, d, h, w, c = vol.shape
+    vals, (fz, fy, fx) = corner_values(vol, grid)
+    cv = ct.reshape(-1, c).astype(np.float32)
+    dx, dy, dz = derivatives(vals, fz, fy, fx)          # (P, C) each
+    layout, lanes = gg_layout(c, elem)
+    sums, all_lanes = [], None
+    for dv in (dx, dy, dz):
+        if layout == "rows":
+            v = c // lanes
+            parts = np.zeros((cv.shape[0], lanes), np.float32)
+            for ch in range(c):
+                parts[:, ch // v] = (parts[:, ch // v]
+                                     + cv[:, ch] * dv[:, ch]).astype(
+                                         np.float32)
+            lanes_sum = butterfly(parts)
+            all_lanes = lanes_sum if all_lanes is None else all_lanes
+            sums.append(lanes_sum[:, 0])
+        else:
+            acc = np.zeros(cv.shape[0], np.float32)
+            for ch in range(c):
+                acc = (acc + cv[:, ch] * dv[:, ch]).astype(np.float32)
+            sums.append(acc)
+    scale = [np.float32((n - 1) / 2.0) for n in (w, h, d)]
+    out = np.stack([s * k for s, k in zip(sums, scale)], -1)
+    return out.reshape(*grid.shape[:4], 3).astype(np.float32), all_lanes
+
+
+@pytest.mark.parametrize("c", [1, 2, 8, 32, 33])
+@pytest.mark.parametrize("dtype", sorted(ELEM))
+@pytest.mark.parametrize("field", ["smooth", "saturated"])
+def test_grid_grad_layouts_match_plain(rng, c, dtype, field):
+    """F's mirror in each layout (C = 1, 2: one thread a point; 8 and 32:
+    a lane a 16-byte chunk, except 8 bf16 rows of one chunk and 2 float32
+    chunks; 33: one thread a point) against ``warp_grid_grad_plain`` within
+    1e-5 of its largest entry (float32 sums in another order), batch 2, a
+    smooth field and a saturated one whose points share corners; the
+    values are those of the type; the wrapper on the CPU is the plain
+    version; in the rows layout every lane of a point ends with the same
+    sums (the xor butterfly)."""
+    dhw, b = (5, 7, 19), 2
+    grid = grid_of(rng, b, dhw, 1.0 if field == "smooth" else 9.0)
+    if field == "saturated":
+        grid = np.clip(grid, -0.9, 0.9)
+    tdt = getattr(torch, dtype)
+    vol = torch.from_numpy(rng.rand(b, *dhw, c).astype(np.float32)).to(tdt)
+    ct = torch.from_numpy((rng.rand(b, *dhw, c) * 2 - 1).astype(
+        np.float32)).to(tdt)
+    got, lanes_sums = grid_grad_mirror(vol.float().numpy(), grid,
+                                       ct.float().numpy(), ELEM[dtype])
+    ref = warp_grid_grad_plain(vol, torch.from_numpy(grid), ct).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    if lanes_sums is not None:
+        assert (lanes_sums == lanes_sums[:, :1]).all()
+    np.testing.assert_array_equal(
+        warp_grid_grad(vol, torch.from_numpy(grid), ct).numpy(), ref)
+
+
+@pytest.mark.parametrize("c", [1, 2, 8, 32, 33])
+@pytest.mark.parametrize("dtype", sorted(ELEM))
+def test_grid_grad_lane_maps_cover_each_point_once(c, dtype):
+    """At a ragged point count per sample (1000 and 2500: no multiple of a
+    block) and batch 2 (blockIdx.y the sample): the points kernel (256
+    points a block, one a thread) and the rows kernel (256 / lanes points a
+    block, a lane a chunk, the point's first lane writing; whole warps run
+    to their end for the shuffles) read every (point, channel) once and
+    write every point's gradient once."""
+    elem = ELEM[dtype]
+    layout, lanes = gg_layout(c, elem)
+    for points in (1000, 2500):
+        read = np.zeros((2, points, c), np.int64)
+        wrote = np.zeros((2, points), np.int64)
+        for s in range(2):
+            if layout == "points":
+                for blk in range(-(-points // THREADS)):
+                    for t in range(THREADS):
+                        i = blk * THREADS + t
+                        if i < points:
+                            read[s, i] += 1
+                            wrote[s, i] += 1
+            elif layout == "rows":
+                v = 16 // elem
+                per_block = THREADS // lanes
+                for blk in range(-(-points // per_block)):
+                    for t in range(THREADS):
+                        i = blk * per_block + t // lanes
+                        first = i - (t & 31) // lanes  # the warp's first
+                        if first >= points:
+                            continue                   # the warp returns
+                        c0 = (t & (lanes - 1)) * v
+                        if i < points:
+                            read[s, i, c0:c0 + v] += 1
+                            wrote[s, i] += c0 == 0
+            else:
+                read[s] += 1
+                wrote[s] += 1
+        assert (read == 1).all() and (wrote == 1).all()
+
+
+@pytest.mark.parametrize("c", [1, 8])
+def test_grid_grad_mirror_matches_pallas(rng, c):
+    """In float32 against the JAX package's grid gradient, the VJP of
+    ``pallas_grid_sample`` in interpret mode (``_bwd_grid_kernel``), on a
+    field inside its bound (max_disp 3): one thread a point at C = 1, two
+    16-byte chunks a point at C = 8; within 1e-4 of the largest entry (the
+    Pallas kernel's tent form rounds differently: tests/test_torch_warp.py
+    holds the same tolerance)."""
+    dhw, r = (8, 8, 20), 3
+    grid = grid_of(rng, 1, dhw, r - 1.0)
+    vol = rng.rand(1, *dhw, c).astype(np.float32)
+    ct = rng.randn(1, *dhw, c).astype(np.float32)
+    got, _ = grid_grad_mirror(vol, grid, ct, 4)
+    _, vjp = jax.vjp(lambda g: pallas_grid_sample(
+        jnp.asarray(vol), g, max_disp=r, z_tile=4, interpret=True),
+        jnp.asarray(grid))
+    (ref,) = vjp(jnp.asarray(ct))
+    ref = np.asarray(ref)
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()

@@ -13,7 +13,8 @@ and splat on a TPU.  Three fields, each clamped to ``--max-disp`` voxels as
     regime makes it; a lower bound).
 
 Three channel cases, the calls the main paths make: one float32 channel
-(the registration image warp and the splat of ones), 32 bfloat16 channels
+(the registration image warp, its grid gradient, and the anatomy dice's
+splat of ones, ``splat_ones``, timed as its own row), 32 bfloat16 channels
 (the soft anatomy's probabilities) and 32 float32 one-hot channels (the
 f-hard branch's splat).  Per kernel and case: ms per call from CUDA events
 around ``--iters`` calls after one warm-up (at small shapes the host's time)
@@ -35,6 +36,7 @@ the plain versions at a small ``--size`` for the tests (host clock: no
 device numbers).
 
   python tools/bench_warp_torch.py [--iters 10] [--repo DIR] [--seg-step]
+      [--passes] [--fields smooth adversarial] [--cases c1_float32]
 """
 from __future__ import annotations
 
@@ -197,8 +199,18 @@ def bench_kernels(args, device):
                                                                  ct),
                 "splat_trilinear": lambda: kernels.splat_trilinear(
                     ct, grid, shape[1:])}
+            names = KERNELS
+            if c == 1 and not onehot:
+                # the anatomy dice's splat of ones: its own entry where the
+                # checkout has one, else the general splat of a ones tensor
+                ones = torch.ones(shape + (1,), device=device)
+                calls["splat_ones"] = (
+                    (lambda: kernels.splat_ones(grid, shape[1:]))
+                    if hasattr(kernels, "splat_ones") else
+                    (lambda: kernels.splat_trilinear(ones, grid, shape[1:])))
+                names = KERNELS + ("splat_ones",)
             elem = 2 if dname == "bfloat16" else 4
-            for name in KERNELS:
+            for name in names:
                 fn = calls[name]
                 first, second = fn(), fn()
                 same = bool(torch.equal(first, second))
@@ -206,12 +218,14 @@ def bench_kernels(args, device):
                 del first, second
                 lib_key = "forward" if name == "warp_trilinear" \
                     else "backward"
+                # the splat of ones reads no cotangent: 12 + 4 bytes a point
+                nbytes = n * 16 if name == "splat_ones" \
+                    else warp_bytes(name, n, c, elem)
                 row = {"field": field, "case": case, "kernel": name,
                        "channels": c, "dtype": dname,
                        "ms": ms_of(fn, args.iters),
                        "device_ms": device_ms_of(fn, args.iters),
-                       "bound_ms": warp_bytes(name, n, c, elem)
-                       / HBM_BYTES_PER_S * 1e3,
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                        "library": f"F.grid_sample {lib_key} (float32)",
                        "library_ms": lib[lib_key][0],
                        "library_device_ms": lib[lib_key][1],
