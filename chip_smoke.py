@@ -9,8 +9,12 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
   2. build   -- compile the CUDA sources of deepatlas_torch/kernels/csrc
      (the ``ptxas`` report of every kernel logged, and per source the most
      registers a kernel uses and its spill bytes).
+     native -- the native I/O library (``native/deepatlas_io.cpp``, g++
+     and zlib, built into deepatlas_torch/kernels/_build) must build and
+     read a small volume and its labels as the Python parser does; its
+     build seconds are logged.
   3. kernels -- each kernel against its plain PyTorch version at every
-     shape the four main paths launch it at, in float32 and bfloat16, with
+     shape the six main paths launch it at, in float32 and bfloat16, with
      kernel / plain / library (cuDNN) times from CUDA events and the least
      time the card could take (``bound_ms``), and the kernel's and the
      library call's queued (device) times.  The k3 conv and its weight
@@ -25,7 +29,11 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      volume with 32 classes -- the forward convs, kernel A again at its 13
      input-gradient shapes (Cin and Cout swapped), the head's kernel at its
      input-gradient shape, and the k3 weight-gradient kernel at its 14
-     shapes.  Registration: one VoxelMorph step on a 168x200x168 pair --
+     shapes.  The fixed UNet (unet_serving, unet_training): the same roles
+     at its plan's shapes (A and D up to Cin 768, C at 512 -> 512, B at
+     64 -> n_classes), with the weight-gradient kernel's float32 partial
+     sums (``wgrad_partial_bytes``) logged per shape.
+     Registration: one VoxelMorph step on a 168x200x168 pair --
      kernel A at its 11 forward (4 of them strided) and 10 input-gradient
      (4 strided: the parity-class launch in bfloat16, the stride-1 kernel
      on the zero-stuffed gradient in float32) shapes and the
@@ -65,9 +73,12 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      seeded weights and BatchNorm statistics saved as a checkpoint, and
      ``infer_seg_torch.main`` at the documented OAI setting (tile 128^3,
      overlap 16, tile batch 4, bf16).  The launch counters must show 14 k3
-     convs, 3 deconvs and 1 head per tile batch, the CLI's Dice lines must
-     be finite, and one tile batch through the kernels must agree with the
-     same net on the plain versions.
+     convs, 3 deconvs and 1 head per tile batch, every volume and mask
+     must be read by the native tier (``read_counts``), the CLI's Dice
+     lines must be finite, and one tile batch through the kernels must
+     agree with the same net on the plain versions; the decode of one OAI
+     image through the native tier and through the Python parser is
+     timed.
   5. train   -- the segmentation training path: a synthetic MindBoggle-layout
      corpus (182x218x182 volumes, 32 labels whose intensity follows the
      label, from ``--seed``) and ``train_seg_torch.main --num-samples 21
@@ -137,6 +148,18 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      their rows logged; each kernel must launch exactly as often as the
      tool called it, K's launches are the ones its kernels entry counts
      apart.  Run after the kernels phase, before the main paths.
+  9. unet_serving -- ``infer_seg_torch.main --model UNet`` on one
+     synthetic OAI volume with a seeded checkpoint of the fixed UNet (5
+     classes, the serving setting above): 14 / 3 / 1 launches per tile
+     batch, finite Dice, seconds per volume, and one tile batch's logits
+     through the kernels against the plain versions.
+ 10. unet_train -- the segmentation experiment with ``"model": "UNet"``
+     (bias, BatchNorm, 32 classes, bf16, batch 1, the MindBoggle recipe's
+     168x200x168 crops) for ``UNET_TRAIN_STEPS`` steps and one validation:
+     27 / 14 / 3 / 2 launches per step, a finite loss that falls, the
+     step's median seconds, peak memory and kernel D's partial sums; then
+     one step's gradients through the kernels against the plain versions
+     (``unet_train_check``).
 
 Then the ``nvidia-smi`` line, the kernels summary line and, last,
 ``{"ok": true, "device": {...}}``.  Run with no arguments:
@@ -210,7 +233,8 @@ SOURCES_BY_DTYPE = {
 # splat) integer atomics, whose sums do not depend on their order
 DETERMINISTIC = ("conv3d_k3_wgrad", "deconv2x", "conv3d_point",
                  "splat_trilinear")
-PATHS = ("serving", "training", "registration", "joint")
+PATHS = ("serving", "training", "registration", "joint", "unet_serving",
+         "unet_training")
 
 # relative tolerances max|kernel - plain| / max|plain|: float32 differs
 # only in summation order; bfloat16 inputs are identical on both sides and
@@ -411,15 +435,19 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def unet_cases(path, batch, dhw, n_classes, train):
-    """Every launch of one UNet_light forward (and, with ``train``, of its
-    backward) on a ``(batch, *dhw, 1)`` input, as
-    ``{(path, kernel, role, batch, dhw, cin, cout): launches}``.  Roles:
-    ``forward``; ``dx`` (the same kernel on the upstream gradient, Cin and
-    Cout swapped; the first conv's input needs none); ``wgrad``."""
-    from deepatlas_torch.models import (UNET_LIGHT_DECODERS,
-                                        UNET_LIGHT_ENCODERS)
+def unet_cases(path, batch, dhw, n_classes, train, model="UNet_light"):
+    """Every launch of one forward of the U-Net ``model`` (UNet_light or the
+    fixed UNet; with ``train``, of its backward too) on a ``(batch, *dhw,
+    1)`` input, as ``{(path, kernel, role, batch, dhw, cin, cout):
+    launches}``.  Roles: ``forward``; ``dx`` (the same kernel on the
+    upstream gradient, Cin and Cout swapped; the first conv's input needs
+    none); ``wgrad``."""
+    from deepatlas_torch import models
 
+    encoders, decoders = {
+        "UNet_light": (models.UNET_LIGHT_ENCODERS,
+                       models.UNET_LIGHT_DECODERS),
+        "UNet": (models.UNET_ENCODERS, models.UNET_DECODERS)}[model]
     cases = {}
 
     def add(kernel, role, size, cin, cout):
@@ -434,14 +462,14 @@ def unet_cases(path, batch, dhw, n_classes, train):
                 add("conv3d_k3", "dx", size, cout, cin)
 
     cin, size, skips = 1, tuple(dhw), []
-    for i, plan in enumerate(UNET_LIGHT_ENCODERS):
+    for i, plan in enumerate(encoders):
         for f in (plan if i == 0 else plan[1:]):
             conv(size, cin, f, first=cin == 1)
             cin = f
-        if i < len(UNET_LIGHT_ENCODERS) - 1:
+        if i < len(encoders) - 1:
             skips.append(cin)
             size = tuple(n // 2 for n in size)
-    for plan in UNET_LIGHT_DECODERS:
+    for plan in decoders:
         add("deconv2x", "forward", size, cin, plan[0])
         size = tuple(n * 2 for n in size)
         cin = plan[0] + skips.pop()
@@ -514,7 +542,26 @@ def all_cases():
     cases = unet_cases("serving", TILE_BATCH, (TILE,) * 3, N_CLASSES, False)
     cases.update(unet_cases("training", 1, TRAIN_SHAPE, TRAIN_CLASSES, True))
     cases.update(voxelmorph_cases("registration", 1, TRAIN_SHAPE))
+    cases.update(unet_cases("unet_serving", TILE_BATCH, (TILE,) * 3,
+                            N_CLASSES, False, model="UNet"))
+    cases.update(unet_cases("unet_training", 1, TRAIN_SHAPE, TRAIN_CLASSES,
+                            True, model="UNet"))
     return cases
+
+
+def wgrad_partial_bytes(dtype_name, batch, dhw, cin, cout, stride=1):
+    """Bytes of the float32 partial sums ``(chunks, 27, Cin, Cout)`` that
+    the weight-gradient kernel of this type allocates for one call."""
+    from deepatlas_torch.kernels import build, conv3d
+
+    if dtype_name == "bfloat16":
+        lib = build.load("conv3d_mma", conv3d._MMA_SIGNATURES)
+        chunks = lib.conv3d_k3_wgrad_mma_chunks(batch, *dhw, cin, cout,
+                                                stride)
+    else:
+        lib = build.load("conv3d_wgrad", conv3d._WGRAD_SIGNATURES)
+        chunks = lib.conv3d_k3_wgrad_chunks(batch, *dhw, cin, cout, stride)
+    return chunks * 27 * cin * cout * 4
 
 
 def work(kernel, n, cin, cout, dtype_name, n_out=None, role=""):
@@ -724,6 +771,9 @@ def check_kernels(seed):
                 simt_ms = cuda_ms(simt, reps=5)
                 simt_dev_ms = cuda_ms(simt, reps=5, queued=True)
             bms, bound_by = bound_ms(name, n, cin, cout, dname, n_out, role)
+            partial_bytes = wgrad_partial_bytes(
+                dname, batch, size, cin, cout, stride) \
+                if name == "conv3d_k3_wgrad" else None
             log({"phase": "kernels", "path": path, "kernel": name,
                  "role": role, "dtype": dname, "x": list(x.shape),
                  "cin": cin, "cout": cout, "launches_per_unit": per_unit,
@@ -734,7 +784,8 @@ def check_kernels(seed):
                  "plain_ms": plain_ms, "library_ms": lib_ms,
                  "kernel_device_ms": dev_ms, "library_device_ms": lib_dev_ms,
                  "cuda_core_ms": simt_ms, "cuda_core_device_ms": simt_dev_ms,
-                 "bound_ms": bms, "bound_by": bound_by})
+                 "bound_ms": bms, "bound_by": bound_by,
+                 "wgrad_partial_bytes": partial_bytes})
             if not ok:
                 raise AssertionError(f"{name} {role} {dname} "
                                      f"{tuple(x.shape)} -> {cout}: max|k-p| "
@@ -1502,7 +1553,7 @@ def block_entry(block, convs):
                   for p in BLOCK_P_BLKS}}
 
 
-def write_corpus(root, seed):
+def write_corpus(root, seed, n_volumes=N_VOLUMES):
     """Synthetic OAI-ZIB volumes: nested ellipsoidal shells labelled 0..4
     with intensities that follow the labels, plus noise."""
     from deepatlas_torch.data import write_nifti
@@ -1514,7 +1565,7 @@ def write_corpus(root, seed):
                              np.linspace(-1, 1, w, dtype=np.float32),
                              indexing="ij")
     names = []
-    for v in range(N_VOLUMES):
+    for v in range(n_volumes):
         c = rng.uniform(-0.2, 0.2, 3).astype(np.float32)
         r = np.sqrt(((zz - c[0]) / 0.9) ** 2 + ((yy - c[1]) / 0.8) ** 2
                     + ((xx - c[2]) / 0.8) ** 2)
@@ -1613,11 +1664,26 @@ def stage_seconds(model, workdir, name):
     return out
 
 
+def decode_seconds(path, reps=2):
+    """Host seconds to read one NIfTI file through the native tier and
+    through the Python parser, in turns (the best of ``reps`` each)."""
+    from deepatlas_torch.data import read_nifti
+
+    out = {"native": [], "python": []}
+    for _ in range(reps):
+        for key, prefer in (("native", True), ("python", False)):
+            t0 = time.perf_counter()
+            read_nifti(path, prefer_native=prefer)
+            out[key].append(time.perf_counter() - t0)
+    return {f"{k}_s": min(v) for k, v in out.items()}
+
+
 def run_main_path(seed, workdir):
     import torch
 
     import infer_seg_torch
-    from deepatlas_torch.data import Partition, read_nifti
+    from deepatlas_torch.data import (Partition, read_counts, read_nifti,
+                                      reset_read_counts)
     from deepatlas_torch.kernels import launch_counts, reset_launch_counts
     from deepatlas_torch.models import get_network
     from deepatlas_torch.train import save_checkpoint
@@ -1642,12 +1708,14 @@ def run_main_path(seed, workdir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    reset_read_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         infer_seg_torch.main(argv)
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     counts = launch_counts()
+    reads = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()
@@ -1666,8 +1734,10 @@ def run_main_path(seed, workdir):
     n_tiles = int(np.prod([-(-s // eff) for s in OAI_SHAPE]))
     batches = N_VOLUMES * -(-n_tiles // TILE_BATCH)
     want = {k: v * batches for k, v in EVAL_LAUNCHES.items()}
+    reads_want = {"native": 2 * N_VOLUMES, "fallback": 0}
     log({"phase": "main", "volumes": N_VOLUMES, "volume_shape": OAI_SHAPE,
          "tiles_per_volume": n_tiles, "tile_batches": batches,
+         "nifti_reads": reads, "nifti_reads_expected": reads_want,
          "launches": counts, "launches_expected": want,
          "setup_s": setup_s, "infer_s": infer_s,
          "seconds_per_volume": infer_s / N_VOLUMES,
@@ -1675,10 +1745,19 @@ def run_main_path(seed, workdir):
          "max_memory_allocated": peak, "cli_lines": lines})
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
+    if reads != reads_want:
+        raise AssertionError(f"the CLI's reads {reads}, expected every "
+                             f"volume and mask native: {reads_want}")
 
     model.load_state_dict(sd)
     model.to("cuda").eval()
+    reset_read_counts()
     stages = stage_seconds(model, workdir, names[0])
+    stage_reads = read_counts()
+    if stage_reads != {"native": 2, "fallback": 0}:
+        raise AssertionError(f"stage_s read {stage_reads}, not natively")
+    decode = decode_seconds(os.path.join(workdir,
+                                         f"{names[0]}_image.nii.gz"))
 
     # one tile batch: kernels against the plain versions, bf16 and f32
     img = read_nifti(os.path.join(workdir, f"{names[0]}_image.nii.gz")).data
@@ -1698,7 +1777,8 @@ def run_main_path(seed, workdir):
             raise AssertionError(f"net {dname}: max|k-p| {err} > "
                                  f"{NET_TOL[dname]} * {scale}")
     log({"phase": "main_check", "tile_batch_forward_ms_bf16": fwd_ms,
-         "stage_s": stages, "logits_vs_plain": agree,
+         "stage_s": stages, "stage_nifti_reads": stage_reads,
+         "decode_one_oai_image_s": decode, "logits_vs_plain": agree,
          "mean_dice": means[0]})
     return counts
 
@@ -1860,6 +1940,47 @@ def step_breakdown(model, criterion, optimizer, x, y):
     return out
 
 
+def seg_gradient_agreement(model, criterion, x, y):
+    """One seg training step's parameter gradients through the kernels
+    against the same step on the plain versions, in bfloat16 (held in the
+    mean over a tensor's entries) and in float32 (at the worst entry), per
+    tensor relative to its largest entry (``GRAD_TOL``), and the losses
+    (``NET_TOL``).  Returns ``{dtype: {..., "ok"}}``; the model is left in
+    float32."""
+    import torch
+
+    agree = {}
+    for dtype in (torch.bfloat16, None):
+        model.dtype = dtype
+        dname = "bfloat16" if dtype else "float32"
+        loss_k, got = step_gradients(model, criterion, x, y)
+        with plain_math():
+            loss_p, ref = step_gradients(model, criterion, x, y)
+        worst_max, worst_mean = (0.0, ""), (0.0, "")
+        for name, r in ref.items():
+            if name.endswith(".bias") and ".bn." not in name \
+                    and not name.startswith("head."):
+                continue        # in front of a BatchNorm: noise only
+            scale = r.abs().max().item()
+            diff = (got[name] - r).abs()
+            if not torch.isfinite(diff).all():
+                raise AssertionError(f"non-finite gradient in {name}")
+            worst_max = max(worst_max, (diff.max().item() / scale, name))
+            worst_mean = max(worst_mean, (diff.mean().item() / scale, name))
+        agree[dname] = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                        "worst_max_rel": worst_max,
+                        "worst_mean_rel": worst_mean}
+        if dtype is None:
+            agree[dname]["rel_tol_max"] = GRAD_TOL["float32"]
+            bad = worst_max[0] > GRAD_TOL["float32"]
+        else:
+            agree[dname]["rel_tol_mean"] = GRAD_TOL["bfloat16_mean"]
+            bad = worst_mean[0] > GRAD_TOL["bfloat16_mean"]
+        agree[dname]["ok"] = not (bad or abs(loss_k - loss_p)
+                                  > NET_TOL[dname])
+    return agree
+
+
 def step_gradients(model, criterion, x, y):
     """Parameter gradients of one training step (BatchNorm statistics are
     put back, so repeated calls start from the same state)."""
@@ -1985,35 +2106,7 @@ def run_train_path(seed, workdir):
     step_breakdown(model, criterion, optimizer, x, y)       # warm-up
     split = step_breakdown(model, criterion, optimizer, x, y)
 
-    agree = {}
-    for dtype in (torch.bfloat16, None):
-        model.dtype = dtype
-        dname = "bfloat16" if dtype else "float32"
-        loss_k, got = step_gradients(model, criterion, x, y)
-        with plain_math():
-            loss_p, ref = step_gradients(model, criterion, x, y)
-        worst_max, worst_mean = (0.0, ""), (0.0, "")
-        for name, r in ref.items():
-            if name.endswith(".bias") and ".bn." not in name \
-                    and not name.startswith("head."):
-                continue        # in front of a BatchNorm: noise only
-            scale = r.abs().max().item()
-            diff = (got[name] - r).abs()
-            if not torch.isfinite(diff).all():
-                raise AssertionError(f"non-finite gradient in {name}")
-            worst_max = max(worst_max, (diff.max().item() / scale, name))
-            worst_mean = max(worst_mean, (diff.mean().item() / scale, name))
-        agree[dname] = {"loss_kernels": loss_k, "loss_plain": loss_p,
-                        "worst_max_rel": worst_max,
-                        "worst_mean_rel": worst_mean}
-        if dtype is None:
-            agree[dname]["rel_tol_max"] = GRAD_TOL["float32"]
-            bad = worst_max[0] > GRAD_TOL["float32"]
-        else:
-            agree[dname]["rel_tol_mean"] = GRAD_TOL["bfloat16_mean"]
-            bad = worst_mean[0] > GRAD_TOL["bfloat16_mean"]
-        agree[dname]["ok"] = not (bad or abs(loss_k - loss_p)
-                                  > NET_TOL[dname])
+    agree = seg_gradient_agreement(model, criterion, x, y)
     log({"phase": "train_check", "step_split_s": split,
          "gradients_vs_plain": agree, "volume": names[0]})
     if not all(a["ok"] for a in agree.values()):
@@ -2801,6 +2894,243 @@ def run_joint_path(seed, workdir):
     return counts
 
 
+def check_native():
+    """Phase native: the native I/O library builds from ``native/`` (g++,
+    zlib) and reads a small volume and its labels as the Python parser
+    does, bit for bit; the run fails where it is not available."""
+    from deepatlas_torch.data import (_native, read_counts, read_nifti,
+                                      reset_read_counts, write_nifti)
+
+    t0 = time.perf_counter()
+    ok = _native.available()
+    record = {"phase": "native", "available": ok,
+              "build_s": _native.build_seconds,
+              "seconds": time.perf_counter() - t0,
+              "library": os.path.relpath(_native.lib_path(), REPO),
+              "build_error": _native.build_error}
+    if ok:
+        rng = np.random.RandomState(7)
+        same = []
+        reset_read_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, data in (
+                    ("img.nii.gz", rng.rand(11, 13, 17).astype(np.float32)),
+                    ("seg.nii.gz", rng.randint(0, 32, (11, 13, 17)).astype(
+                        np.uint8))):
+                path = os.path.join(tmp, name)
+                write_nifti(path, data)
+                got = read_nifti(path).data
+                ref = read_nifti(path, prefer_native=False).data
+                same.append(bool(np.array_equal(got, ref.astype(np.float32))))
+        record.update(same_as_python_parser=same, reads=read_counts())
+        ok = all(same) and record["reads"] == {"native": 2, "fallback": 0}
+    log(record)
+    if not ok:
+        raise AssertionError(f"native I/O tier: {record}")
+
+
+def run_unet_serving_path(seed, workdir):
+    """Phase unet_serving: ``infer_seg_torch.main --model UNet`` on one
+    synthetic 160x384x384 OAI volume at the documented setting (tile 128^3,
+    overlap 16, tile batch 4, bf16, 5 classes) with a seeded checkpoint of
+    the fixed UNet: its launches per tile batch (14 k3 convs, 3 transposed
+    convs, 1 head, as UNet_light), finite Dice, seconds per volume, and one
+    tile batch's logits through the kernels against the plain versions."""
+    import torch
+
+    import infer_seg_torch
+    from deepatlas_torch.data import Partition, read_nifti
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+    from deepatlas_torch.models import get_network
+    from deepatlas_torch.train import save_checkpoint
+
+    names = write_corpus(workdir, seed + 5, n_volumes=1)
+    model = get_network("UNet")(in_channel=1, n_classes=N_CLASSES, bias=True,
+                                BN=True, dtype=torch.bfloat16)
+    sd = seeded_state(model, seed + 5)
+    ckpt = save_checkpoint({"epoch": 0, "best_score": 0.0, "model": sd},
+                           True, os.path.join(workdir, "ckpt"))
+    argv = ["--ckpt", os.path.join(os.path.dirname(ckpt), "model_best"),
+            "--data-root", workdir, "--list-file",
+            os.path.join(workdir, "test.txt"), "--data", "OAI",
+            "--model", "UNet", "--n-classes", str(N_CLASSES),
+            "--tile-size", *[str(TILE)] * 3, "--overlap", "16", "16", "16",
+            "--tile-batch", str(TILE_BATCH), "--device", "cuda"]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        infer_seg_torch.main(argv)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    per_volume = [ln for ln in lines if "name" in ln]
+    if [ln["name"] for ln in per_volume] != names \
+            or len(per_volume[0]["dice"]) != N_CLASSES - 1 \
+            or not np.all(np.isfinite(per_volume[0]["dice"])):
+        raise AssertionError(f"unexpected CLI output: {out.getvalue()!r}")
+    eff = TILE - 2 * 16
+    n_tiles = int(np.prod([-(-s // eff) for s in OAI_SHAPE]))
+    batches = -(-n_tiles // TILE_BATCH)
+    want = {k: v * batches for k, v in EVAL_LAUNCHES.items()}
+
+    model.load_state_dict(sd)
+    model.to("cuda").eval()
+    img = read_nifti(os.path.join(workdir, f"{names[0]}_image.nii.gz")).data
+    tiles = Partition((TILE,) * 3, (16,) * 3)(
+        {"image": np.clip(img, 0, 1)[..., None]})["image"][:TILE_BATCH]
+    x = torch.from_numpy(np.ascontiguousarray(tiles)).cuda()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(x), reps=3)
+    agree = {}
+    for dtype in (torch.bfloat16, None):
+        model.dtype = dtype
+        err, scale = net_agreement(model, x)
+        dname = "bfloat16" if dtype else "float32"
+        agree[dname] = {"max_abs_err": err, "max_abs_logit": scale,
+                        "rel_tol": NET_TOL[dname],
+                        "ok": err <= NET_TOL[dname] * scale}
+    log({"phase": "unet_serving", "model": "UNet", "volume_shape": OAI_SHAPE,
+         "tiles_per_volume": n_tiles, "tile_batches": batches,
+         "launches": counts, "launches_expected": want,
+         "seconds_per_volume": infer_s, "tiles_per_s": n_tiles / infer_s,
+         "max_memory_allocated": peak,
+         "tile_batch_forward_ms_bf16": fwd_ms, "logits_vs_plain": agree,
+         "cli_lines": lines})
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if not all(a["ok"] for a in agree.values()):
+        raise AssertionError(f"UNet logits disagree: {agree}")
+    return counts
+
+
+# the fixed UNet's seg training run: a handful of steps of the MindBoggle
+# recipe with "model": "UNet"; the loss must fall from the first
+# UNET_TRAIN_WINDOW steps to the last
+UNET_TRAIN_STEPS = 16
+UNET_TRAIN_WINDOW = 5
+
+
+def run_unet_train_path(seed, workdir):
+    """Phase unet_train: the seg experiment with ``"model": "UNet"`` (bias,
+    BatchNorm, 32 classes, bf16, batch 1, 168x200x168 crops of the
+    synthetic MindBoggle corpus), ``UNET_TRAIN_STEPS`` steps and one
+    validation: per step 27 k3 convs, 14 weight gradients, 3 transposed
+    convs and 2 head convs, a finite, falling loss; the step's median
+    seconds, its peak memory and kernel D's partial sums; then one step's
+    gradients through the kernels against the plain versions."""
+    import torch
+
+    import train_seg_torch
+    from deepatlas_torch.data import (Compose, CropVolume, VolumeToArray,
+                                      get_seg_dataset)
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.models import get_network
+    from deepatlas_torch.train import (SegmentationExperiment,
+                                       load_checkpoint, segmentation)
+
+    names = write_mindboggle_corpus(workdir, seed + 6)
+    config = train_seg_torch.build_config(train_seg_torch.parse_args(
+        ["--data-root", workdir, "--log-root", "logs", "--num-samples", "21",
+         "--num-epochs", "1", "--device", "cuda"]))
+    config["model"] = "UNet"
+    config["samples_per_epoch"] = UNET_TRAIN_STEPS
+    rec = StepRecorder()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(workdir), contextlib.redirect_stdout(out), \
+            mock.patch.object(segmentation, "make_seg_train_step",
+                              rec.train_factory(
+                                  segmentation.make_seg_train_step)), \
+            mock.patch.object(segmentation, "make_seg_eval_step",
+                              rec.eval_factory(
+                                  segmentation.make_seg_eval_step)):
+        exp = SegmentationExperiment(config)
+        exp.train()
+        ckpt = os.path.abspath(os.path.join(exp.ckpoint_dir, "checkpoint"))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_eval = len(rec.eval_launches)
+    want = {k: UNET_TRAIN_STEPS * STEP_LAUNCHES[k] + n_eval * EVAL_LAUNCHES[k]
+            for k in STEP_LAUNCHES}
+    wgrad_shapes = [(size, cin, cout) for (_, kernel, _, _, size, cin, cout)
+                    in unet_cases("unet_training", 1, TRAIN_SHAPE,
+                                  TRAIN_CLASSES, True, model="UNet")
+                    if kernel == "conv3d_k3_wgrad"]
+    partial = [wgrad_partial_bytes("bfloat16", 1, *shape)
+               for shape in wgrad_shapes]
+    warm = sorted(rec.seconds[2:])
+    first, last = (float(np.mean(rec.losses[:UNET_TRAIN_WINDOW])),
+                   float(np.mean(rec.losses[-UNET_TRAIN_WINDOW:])))
+    log({"phase": "unet_train", "model": "UNet", "train_shape": TRAIN_SHAPE,
+         "n_classes": TRAIN_CLASSES, "steps": len(rec.losses),
+         "evaluated_volumes": n_eval, "launches": counts,
+         "launches_expected": want, "launches_per_step": STEP_LAUNCHES,
+         "losses": rec.losses, "loss_first_mean": first,
+         "loss_last_mean": last, "first_steps_s": rec.seconds[:2],
+         "step_s_median": warm[len(warm) // 2], "step_s_min": warm[0],
+         "step_s_max": warm[-1],
+         "volumes_per_s_in_steps": 1.0 / (sum(warm) / len(warm)),
+         "volumes_per_s_with_loading": len(rec.losses)
+         / (rec.last_end - rec.first_start),
+         "max_memory_allocated": peak,
+         "wgrad_partial_bytes_max": max(partial),
+         "wgrad_partial_bytes_per_step": sum(partial),
+         "experiment_s": total_s,
+         "cli_tail": out.getvalue().splitlines()[-4:]})
+    if len(rec.losses) != UNET_TRAIN_STEPS or n_eval != 1:
+        raise AssertionError(f"{len(rec.losses)} steps and {n_eval} "
+                             f"evaluated volumes, expected "
+                             f"{UNET_TRAIN_STEPS}, 1")
+    for i, got in enumerate(rec.step_launches):
+        if got != STEP_LAUNCHES:
+            raise AssertionError(f"step {i} launched {got}, expected "
+                                 f"{STEP_LAUNCHES}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if not np.all(np.isfinite(rec.losses)) or not last < first:
+        raise AssertionError(f"the loss is not finite and falling: "
+                             f"{rec.losses}")
+
+    # one more step by hand on the trained state, through the kernels and
+    # on the plain versions
+    mb = os.path.join(workdir, "mindboggle")
+    dataset = get_seg_dataset("MindBoggle")(
+        os.path.join(mb, "MMRR-21-flip.txt"), mb, pre_transform=Compose(
+            [VolumeToArray(), CropVolume(MB_CROP)]))
+    sample = dataset[0]
+    x = torch.from_numpy(np.ascontiguousarray(sample["image"])[None]).cuda()
+    y = torch.from_numpy(np.ascontiguousarray(
+        sample["segmentation"])[None]).cuda()
+    model = get_network("UNet")(in_channel=1, n_classes=TRAIN_CLASSES,
+                                bias=True, BN=True, dtype=torch.bfloat16)
+    model.load_state_dict(load_checkpoint(ckpt)["model"])
+    model.cuda()
+    criterion = get_loss_function("dice")(**config["loss_settings"])
+    agree = seg_gradient_agreement(model, criterion, x, y)
+    log({"phase": "unet_train_check", "gradients_vs_plain": agree,
+         "volume": names[0],
+         "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if not all(a["ok"] for a in agree.values()):
+        raise AssertionError(f"UNet step gradients disagree: {agree}")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2838,6 +3168,7 @@ def main(argv=None):
          "per_source_s": seconds, "ptxas": ptxas,
          "per_source": {name: ptxas_summary(text)
                         for name, text in build.build_logs.items()}})
+    check_native()
 
     with torch.no_grad():
         summary = check_kernels(args.seed)
@@ -2850,7 +3181,9 @@ def main(argv=None):
     launches = {}
     for path, run in (("serving", run_main_path), ("training", run_train_path),
                       ("registration", run_reg_path),
-                      ("joint", run_joint_path)):
+                      ("joint", run_joint_path),
+                      ("unet_serving", run_unet_serving_path),
+                      ("unet_training", run_unet_train_path)):
         with tempfile.TemporaryDirectory() as workdir:
             launches[path] = run(args.seed, workdir)
 
@@ -2900,9 +3233,11 @@ def main(argv=None):
                  "unit of each main path, split under its name: one tile "
                  "batch (4 x 128^3) of the serving path, one training step "
                  "of UNet_light (168x200x168, 32 classes), one registration "
-                 "step of VoxelMorph (168x200x168) and, for 'joint', one "
+                 "step of VoxelMorph (168x200x168), for 'joint', one "
                  "reg step without label substitution plus four seg steps, "
-                 "one in each label regime (soft, f_hard, m_hard, hard): "
+                 "one in each label regime (soft, f_hard, m_hard, hard), "
+                 "and, for 'unet_serving' and 'unet_training', a tile "
+                 "batch and a training step of the fixed UNet: "
                  "bfloat16 for the convolutions, the smooth field for the "
                  "warp and anatomy kernels (float32 with one channel for "
                  "the image warps and the splat of ones, 32 channels for "
@@ -2910,8 +3245,8 @@ def main(argv=None):
                  "splat's one-hot stands in the kernels phase's line "
                  "joint_unit_with_f_hard_one_hot); matched_grid_grad, which "
                  "no main path launches, gives its time per call. launches "
-                 "are the four main paths' runs, read when each CLI "
-                 "returns; max_abs_err is the largest over every shape "
+                 "are the six main paths' runs, read when each returns; "
+                 "max_abs_err is the largest over every shape "
                  "and type; library_ms of warp_grid_grad and of "
                  "splat_trilinear is the same F.grid_sample backward call, "
                  "which computes both. conv3d_k3_block, on no main path, "

@@ -1,21 +1,27 @@
-"""Data layer: NIfTI I/O, datasets, host transforms, batching/prefetch
-(numpy only)."""
+"""Data layer: NIfTI I/O (the native C++ tier with a Python fallback),
+datasets, host transforms, batching/prefetch (numpy only).  Importing it
+builds nothing: the native library builds at its first use."""
 from .datasets import (RegDataSetBrains, RegDataSetMindBoggle,
                        RegDataSetOAIZIB, RegDataSetOASIS, SegDataset,
                        SegDataSetBrains, SegDataSetMindBoggle,
                        SegDataSetOAIZIB, SegDataSetOASIS, get_reg_dataset,
                        get_seg_dataset)
 from .loader import DataLoader, endless
-from .nifti import NiftiImage, read_nifti, write_nifti
-from .transforms import (Compose, CropVolume, LeftToRight, Partition,
-                         VolumeToArray)
+from .nifti import (NiftiImage, read_counts, read_nifti, reset_read_counts,
+                    write_nifti)
+from .transforms import (BilateralFilter, Compose, CropVolume,
+                         IdentityTransform, LeftToRight, Normalization,
+                         PadVolume, Partition, Resample,
+                         SegmentationLabelFilter, VolumeToArray)
 
 __all__ = [
-    "NiftiImage", "read_nifti", "write_nifti",
+    "NiftiImage", "read_counts", "read_nifti", "reset_read_counts",
+    "write_nifti",
     "SegDataset", "SegDataSetBrains", "SegDataSetMindBoggle",
     "SegDataSetOAIZIB", "SegDataSetOASIS", "get_seg_dataset",
     "RegDataSetBrains", "RegDataSetMindBoggle", "RegDataSetOAIZIB",
     "RegDataSetOASIS", "get_reg_dataset",
-    "DataLoader", "endless", "Compose", "CropVolume", "LeftToRight",
-    "Partition", "VolumeToArray",
+    "DataLoader", "endless", "BilateralFilter", "Compose", "CropVolume",
+    "IdentityTransform", "LeftToRight", "Normalization", "PadVolume",
+    "Partition", "Resample", "SegmentationLabelFilter", "VolumeToArray",
 ]

@@ -1,15 +1,21 @@
-"""Self-contained NIfTI-1 reader/writer (numpy only, gzip via stdlib).
+"""Self-contained NIfTI-1 reader/writer (numpy, gzip via stdlib) over the
+native I/O tier.
 
 Arrays are returned in ``(z, y, x)`` index order, matching
 ``sitk.GetArrayFromImage`` as the original reference used, so every
-downstream shape convention carries over.  Pure Python: a native fast path
-is not part of this package yet.
+downstream shape convention carries over.  ``read_nifti`` reads through the
+native C++ library (``_native.py``: zlib inflate and dtype conversion in
+C++, float32 voxels) and falls back to the Python parser where the library
+is not built or cannot decode the file, as ``deepatlas_tpu.data.nifti``
+does; ``read_counts`` says which path each read took.  ``write_nifti`` is
+the Python writer (the JAX package's writer has no native path either).
 """
 from __future__ import annotations
 
 import dataclasses
 import gzip
 import struct
+import threading
 from pathlib import Path
 from typing import Optional, Tuple, Union
 
@@ -52,8 +58,48 @@ def _open_maybe_gzip(path: Union[str, Path], mode: str):
     return open(path, mode)
 
 
-def read_nifti(path: Union[str, Path]) -> NiftiImage:
-    """Read a .nii / .nii.gz file."""
+_counts_lock = threading.Lock()
+_counts = {"native": 0, "fallback": 0}
+
+
+def read_counts() -> dict:
+    """Reads since the last reset: ``native`` through the C++ library,
+    ``fallback`` through the Python parser after a native attempt that
+    returned nothing (reads with ``prefer_native=False`` count in
+    neither)."""
+    with _counts_lock:
+        return dict(_counts)
+
+
+def reset_read_counts() -> None:
+    with _counts_lock:
+        for key in _counts:
+            _counts[key] = 0
+
+
+def _count(key: str) -> None:
+    with _counts_lock:
+        _counts[key] += 1
+
+
+def read_nifti(path: Union[str, Path],
+               prefer_native: bool = True) -> NiftiImage:
+    """Read a .nii / .nii.gz file.
+
+    Uses the native C++ reader (``native/deepatlas_io.cpp``: voxels as
+    float32, the affine from the sform or else from pixdim) when the
+    library is available and decodes the file, falling back to this Python
+    parser (voxels in the file's type).
+    """
+    if prefer_native:
+        from ._native import read_nifti_native
+        res = read_nifti_native(str(path))
+        if res is not None:
+            _count("native")
+            data, spacing, affine = res
+            return NiftiImage(data=data, spacing=spacing,
+                              affine=np.asarray(affine, np.float64))
+        _count("fallback")
     with _open_maybe_gzip(path, "rb") as f:
         raw = f.read()
 

@@ -7,15 +7,27 @@ images, as in ``deepatlas_tpu.data.transforms``:
     channel axis; segmentation to uint8.
   * ``LeftToRight``   -- OAI left-knee flip.
   * ``CropVolume``    -- border crop (the MindBoggle training recipe).
+  * ``PadVolume``     -- pad to a target (D, H, W) shape.
+  * ``SegmentationLabelFilter`` -- label zeroing.
+  * ``Resample``      -- resample to a target voxel size (image trilinear,
+    labels nearest-neighbour) through the native tier.
+  * ``Normalization`` -- zero-mean / unit-variance image, native tier.
+  * ``BilateralFilter`` -- edge-preserving smoothing with probability
+    ``ratio``, native tier.
   * ``Partition``     -- overlap-tile partition + ``assemble`` (center
     stitch or per-label voting) for sliding-window inference.
-  * ``Compose``.
+  * ``Compose`` / ``IdentityTransform``.
+
+The three native-tier transforms call ``_native.py`` (the C++ library of
+``native/deepatlas_io.cpp``) and keep the JAX package's numpy fallbacks for
+where the library is not built.
 
 Samples flow as dicts {'image': (D,H,W,1) float32, 'segmentation': (D,H,W)
 uint8, 'name': str, ['spacing': (sx,sy,sz), 'like': NiftiImage]}.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,6 +42,11 @@ class Compose:
     def __call__(self, sample):
         for t in self.transforms:
             sample = t(sample)
+        return sample
+
+
+class IdentityTransform:
+    def __call__(self, sample):
         return sample
 
 
@@ -90,6 +107,217 @@ class CropVolume:
         sample["image"] = img[sl]
         if sample.get("segmentation") is not None:
             sample["segmentation"] = sample["segmentation"][sl]
+        return sample
+
+
+class PadVolume:
+    """Pad spatial dims of a ``(D, H, W, C)`` image and its segmentation up
+    to a target (D, H, W) shape, the extra split evenly (the odd voxel
+    after); the image pads with ``mode``, the segmentation with 0."""
+
+    def __init__(self, target_shape: Sequence[int], mode: str = "constant"):
+        self.target = tuple(target_shape)
+        self.mode = mode
+
+    def __call__(self, sample):
+        img = sample["image"]
+        pads = []
+        for axis in range(3):
+            extra = self.target[axis] - img.shape[axis]
+            if extra < 0:
+                raise ValueError(
+                    f"PadVolume target {self.target} smaller than volume "
+                    f"{img.shape[:3]}")
+            pads.append((extra // 2, extra - extra // 2))
+        sample["image"] = np.pad(img, pads + [(0, 0)], mode=self.mode)
+        if sample.get("segmentation") is not None:
+            sample["segmentation"] = np.pad(sample["segmentation"], pads,
+                                            mode="constant")
+        return sample
+
+
+class SegmentationLabelFilter:
+    """Set the listed labels of the segmentation to 0."""
+
+    def __init__(self, ignore_labels: Sequence[int]):
+        self.ignore_labels = list(ignore_labels)
+
+    def __call__(self, sample):
+        seg = sample.get("segmentation")
+        if seg is not None:
+            seg = seg.copy()
+            for label in self.ignore_labels:
+                seg[seg == label] = 0
+            sample["segmentation"] = seg
+        return sample
+
+
+class Resample:
+    """Resample image and segmentation to a target voxel size.
+
+    Output size per axis is ``ceil(old_spacing * old_size / new_spacing)``.
+    The image resamples trilinearly at the target voxels' centres, the
+    segmentation nearest-neighbour (``seg_interpolator="linear"`` resamples
+    it trilinearly and rounds, as the original reference did), both
+    through the native tier with numpy fallbacks.  Runs on the numpy
+    ``(D, H, W[, 1])`` arrays and the ``spacing`` key (``(sx, sy, sz)``)
+    that ``VolumeToArray`` records, so compose it after ``VolumeToArray``.
+    """
+
+    def __init__(self, voxel_size, seg_interpolator: str = "nearest"):
+        if isinstance(voxel_size, (int, float)):
+            voxel_size = (float(voxel_size),) * 3
+        if len(voxel_size) != 3:
+            raise ValueError("voxel_size must be a float or 3-tuple")
+        self.voxel_size = tuple(float(v) for v in voxel_size)  # (sx, sy, sz)
+        if seg_interpolator not in ("nearest", "linear"):
+            raise ValueError("seg_interpolator must be nearest|linear")
+        self.seg_interpolator = seg_interpolator
+
+    @staticmethod
+    def _trilinear(vol, out_shape):
+        from ._native import resample_trilinear_native
+        out = resample_trilinear_native(vol, out_shape)
+        if out is not None:
+            return out
+        # numpy fallback: sample target voxel centers in the source grid
+        sz, sy, sx = vol.shape
+        dz, dy, dx = out_shape
+        zc = (np.arange(dz) + 0.5) * (sz / dz) - 0.5
+        yc = (np.arange(dy) + 0.5) * (sy / dy) - 0.5
+        xc = (np.arange(dx) + 0.5) * (sx / dx) - 0.5
+
+        def axis_idx(c, n):
+            i0 = np.floor(c).astype(np.int64)
+            t = c - i0
+            return (np.clip(i0, 0, n - 1), np.clip(i0 + 1, 0, n - 1),
+                    t.astype(np.float32))
+
+        z0, z1, tz = axis_idx(zc, sz)
+        y0, y1, ty = axis_idx(yc, sy)
+        x0, x1, tx = axis_idx(xc, sx)
+        v = vol
+        c00 = v[z0][:, y0][:, :, x0] * (1 - tx) + v[z0][:, y0][:, :, x1] * tx
+        c01 = v[z0][:, y1][:, :, x0] * (1 - tx) + v[z0][:, y1][:, :, x1] * tx
+        c10 = v[z1][:, y0][:, :, x0] * (1 - tx) + v[z1][:, y0][:, :, x1] * tx
+        c11 = v[z1][:, y1][:, :, x0] * (1 - tx) + v[z1][:, y1][:, :, x1] * tx
+        c0 = c00 * (1 - ty[None, :, None]) + c01 * ty[None, :, None]
+        c1 = c10 * (1 - ty[None, :, None]) + c11 * ty[None, :, None]
+        return (c0 * (1 - tz[:, None, None])
+                + c1 * tz[:, None, None]).astype(np.float32)
+
+    @staticmethod
+    def _nearest(vol, out_shape):
+        from ._native import resample_nearest_native
+        out = resample_nearest_native(vol, out_shape)
+        if out is not None:
+            return out
+        sz, sy, sx = vol.shape
+        dz, dy, dx = out_shape
+
+        def axis_idx(n_out, n):
+            return np.clip(np.floor((np.arange(n_out) + 0.5) * (n / n_out))
+                           .astype(np.int64), 0, n - 1)
+
+        return vol[axis_idx(dz, sz)][:, axis_idx(dy, sy)][
+            :, :, axis_idx(dx, sx)]
+
+    def __call__(self, sample):
+        spacing = sample.get("spacing", (1.0, 1.0, 1.0))  # (sx, sy, sz)
+        img = sample["image"]
+        squeeze = img.ndim == 4
+        vol = img[..., 0] if squeeze else img            # (D, H, W)
+        sz, sy, sx = vol.shape
+        # sizes are (x, y, z) in sitk convention; arrays are (z, y, x)
+        out_shape = tuple(
+            int(math.ceil(spacing[a] * n / self.voxel_size[a]))
+            for a, n in ((2, sz), (1, sy), (0, sx)))
+        out = self._trilinear(np.asarray(vol, np.float32), out_shape)
+        sample["image"] = out[..., None] if squeeze else out
+        sample["spacing"] = self.voxel_size
+        seg = sample.get("segmentation")
+        if seg is not None:
+            seg_f = np.asarray(seg, np.float32)
+            if self.seg_interpolator == "nearest":
+                res = self._nearest(seg_f, out_shape)
+            else:
+                res = self._trilinear(seg_f, out_shape)
+            sample["segmentation"] = np.rint(res).astype(seg.dtype)
+        return sample
+
+
+class Normalization:
+    """Zero-mean / unit-variance intensity normalisation of the image,
+    through the native tier (numpy fallback)."""
+
+    def __call__(self, sample):
+        from ._native import normalize_native
+
+        img = np.asarray(sample["image"], np.float32)
+        out = normalize_native(img.reshape(-1), clamp01=False)
+        if out is not None:
+            sample["image"] = out.reshape(img.shape)
+        else:
+            mu = float(img.mean())
+            sd = float(img.std())
+            sample["image"] = (img - mu) / (sd + 1e-12)
+        return sample
+
+
+class BilateralFilter:
+    """Edge-preserving bilateral smoothing of the image with probability
+    ``ratio``: one ``rng.rand(1)`` draw per call decides.
+
+    ``domain_sigma`` is the spatial gaussian sigma in voxels (a window of
+    radius ``ceil(2.5 sigma)``), ``range_sigma`` the intensity gaussian
+    sigma; the native tier evaluates the range gaussian through a lookup
+    table of ``n_range_samples`` samples (ITK's
+    numberOfRangeGaussianSamples), the numpy fallback exactly.
+    """
+
+    def __init__(self, domain_sigma: float = 0.5, range_sigma: float = 0.06,
+                 n_range_samples: int = 50, ratio: float = 1.0,
+                 rng: Optional[np.random.RandomState] = None):
+        self.domain_sigma = domain_sigma
+        self.range_sigma = range_sigma
+        self.n_range_samples = n_range_samples
+        self.ratio = ratio
+        self.rng = rng or np.random
+
+    def _filter(self, vol):
+        from ._native import bilateral_native
+
+        out = bilateral_native(vol, self.domain_sigma, self.range_sigma,
+                               self.n_range_samples)
+        if out is not None:
+            return out
+        # numpy fallback (small volumes / no toolchain): brute-force window
+        r = max(int(np.ceil(2.5 * self.domain_sigma)), 1)
+        pad = np.pad(vol, r, mode="edge")
+        num = np.zeros_like(vol)
+        den = np.zeros_like(vol)
+        inv_d = 1.0 / (2 * self.domain_sigma ** 2)
+        inv_r = 1.0 / (2 * self.range_sigma ** 2)
+        sz, sy, sx = vol.shape
+        for dz in range(-r, r + 1):
+            for dy in range(-r, r + 1):
+                for dx in range(-r, r + 1):
+                    sw = np.exp(-(dz * dz + dy * dy + dx * dx) * inv_d)
+                    nb = pad[r + dz:r + dz + sz, r + dy:r + dy + sy,
+                             r + dx:r + dx + sx]
+                    wgt = sw * np.exp(-(nb - vol) ** 2 * inv_r)
+                    num += wgt * nb
+                    den += wgt
+        return (num / np.maximum(den, 1e-12)).astype(np.float32)
+
+    def __call__(self, sample):
+        if float(self.rng.rand(1)[0]) >= self.ratio:
+            return sample
+        img = sample["image"]
+        squeeze = img.ndim == 4
+        vol = np.asarray(img[..., 0] if squeeze else img, np.float32)
+        out = self._filter(vol)
+        sample["image"] = out[..., None] if squeeze else out
         return sample
 
 

@@ -444,6 +444,14 @@ constexpr int WG_THREADS = 9 * 32;  // one warp per (kz, ky)
 // blocks to aim for over the whole grid: eight per SM (several waves of
 // the 132 SMs), fewer partial sums than the CUDA-core kernel's 2640
 constexpr int WG_TARGET_BLOCKS = 1056;
+// the most tiles a chunk sums: a chunk's products pass through one float32
+// accumulator chain, whose rounding grows with its length (1.5e-4 of dW's
+// largest entry at 1146 tiles, 168x200x168 at Cin 192 -> 64; 1.7e-5 at
+// 144).  Wide channels leave few chunks of many tiles each, so their chunks
+// are cut to this length, at the cost of a larger partial-sum workspace
+// (465 MB there).  144 is the longest chunk of UNet_light's and
+// VoxelMorph's shapes, whose tilings it leaves as they were.
+constexpr int WG_MAX_TILES_PER_CHUNK = 144;
 
 template <int S>
 struct WgradGeo {
@@ -491,6 +499,8 @@ Tiling make_tiling(int B, int D, int H, int W, int tx, int ty, int tz,
   if (want > t.n_tiles) want = t.n_tiles;
   if (want < 1) want = 1;
   t.tiles_per_chunk = (int)((t.n_tiles + want - 1) / want);
+  if (t.tiles_per_chunk > WG_MAX_TILES_PER_CHUNK)
+    t.tiles_per_chunk = WG_MAX_TILES_PER_CHUNK;
   if (t.tiles_per_chunk < 1) t.tiles_per_chunk = 1;
   t.chunks = (int)((t.n_tiles + t.tiles_per_chunk - 1) / t.tiles_per_chunk);
   if (t.chunks < 1) t.chunks = 1;

@@ -2,11 +2,12 @@
 
 Same interface as ``deepatlas_tpu.losses``: ``get_loss_function(name)``
 returns a factory; calling it with the reference's ``loss_settings`` kwargs
-yields the loss callable.  Ported so far: ``dice`` and the registration
-losses (``ncc``, ``lncc``, ``mse``, ``gradient``, ``bendingEnergy``, ``L2``);
-the other keys of the JAX registry raise and point at ROADMAP.md.  The
-``axis_name`` settings of the JAX registry (depth-sharded losses) belong to
-the parallel tiers and have no counterpart yet.
+yields the loss callable.  Every key of the JAX registry: ``dice``, the
+registration losses (``ncc``, ``lncc``, ``mse``, ``gradient``,
+``bendingEnergy``, ``L2``) and the cross-entropy family (``focal``,
+``cross_entropy``, ``soft_cross_entropy``).  The ``axis_name`` settings of
+the JAX registry (depth-sharded losses) belong to the parallel tiers and
+have no counterpart yet.
 """
 from __future__ import annotations
 
@@ -14,11 +15,13 @@ from functools import partial
 
 from .dice import (dice_loss_multiclass, dice_loss_on_label,
                    soft_dice_on_probs)
+from .entropy import cross_entropy_loss, focal_loss, soft_cross_entropy_loss
 from .regularizers import bending_energy_loss, gradient_loss, l2_loss
 from .similarity import (lncc_loss, mse_loss, multiscale_lncc_loss, ncc_loss)
 
 __all__ = ["dice_loss_multiclass", "dice_loss_on_label",
-           "soft_dice_on_probs", "bending_energy_loss", "gradient_loss",
+           "soft_dice_on_probs", "cross_entropy_loss", "focal_loss",
+           "soft_cross_entropy_loss", "bending_energy_loss", "gradient_loss",
            "l2_loss", "lncc_loss", "mse_loss", "multiscale_lncc_loss",
            "ncc_loss", "get_loss_function", "get_available_losses",
            "loss_dict"]
@@ -62,6 +65,21 @@ def _l2_factory(**kw):
     return l2_loss
 
 
+def _focal_factory(**kw):
+    return partial(focal_loss, class_num=kw.get("class_num"),
+                   alpha=kw.get("alpha"), gamma=kw.get("gamma", 2.0),
+                   size_average=kw.get("size_average", True))
+
+
+def _ce_factory(**kw):
+    return cross_entropy_loss
+
+
+def _soft_ce_factory(**kw):
+    return partial(soft_cross_entropy_loss, n_class=kw.get("n_class"),
+                   softmax=kw.get("softmax", False))
+
+
 loss_dict = {
     "ncc": _ncc_factory,
     "lncc": _lncc_factory,
@@ -70,17 +88,13 @@ loss_dict = {
     "bendingEnergy": _bending_factory,
     "dice": _dice_factory,
     "L2": _l2_factory,
+    "focal": _focal_factory,
+    "cross_entropy": _ce_factory,
+    "soft_cross_entropy": _soft_ce_factory,
 }
-
-# keys of the JAX registry whose port comes with a later slice
-_NOT_PORTED = ("focal", "cross_entropy", "soft_cross_entropy")
 
 
 def get_loss_function(loss_name: str):
-    if loss_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"Loss {loss_name!r} is not ported to PyTorch yet; see Queue 1 "
-            f"of ROADMAP.md for the slice that brings it")
     if loss_name not in loss_dict:
         raise KeyError(f"Loss {loss_name!r} is not available! "
                        f"Choose from: {tuple(loss_dict)}")

@@ -15,7 +15,13 @@ The JAX ``UNetTemplate`` stores one of two parameter trees:
 Flax numbers modules per class in creation order: encoder chains top-down,
 then per decoder level its upsampler and its conv chain, then the head
 (``deepatlas_tpu/models/packed.py::transfer_unet_params`` walks the same
-order).  Variables arrive as nested dicts of arrays; only numpy is used.
+order).  The JAX fixed ``UNet`` creates its modules in that order too
+(``ConvBlock_0..7``, then ``DeconvBlock_j`` and two ``ConvBlock``s per
+level, the head ``Conv_0``), so its standard tree, BatchNorm statistics
+included, maps onto the port's ``UNet`` (a ``UNetTemplate``) by the same
+walk.  A model built with ``remat=True`` names its blocks
+``CheckpointConvBlock_i`` / ``CheckpointDeconvBlock_j``; the prefix is
+dropped.  Variables arrive as nested dicts of arrays; only numpy is used.
 
 The JAX ``VoxelMorphCVPR2018`` likewise stores ``ConvBlock_0..9`` plus the
 flow head ``Conv_0`` (standard), or ``PackedConvBlock_0..4`` for the two
@@ -94,17 +100,24 @@ def _block_entry(params: dict, stats: dict, name: str) -> Dict[str, np.ndarray]:
     return out
 
 
+def _unremat(tree: dict) -> dict:
+    return {k.removeprefix("Checkpoint"): v for k, v in tree.items()}
+
+
 def unet_from_flax(variables: dict, model,
                    params_only: bool = False) -> Dict[str, torch.Tensor]:
-    """State dict of ``model`` (a ``UNetTemplate``) from the JAX U-Net's
-    ``{'params': ..., ['batch_stats': ...]}``, standard or packed tree.
-    With ``params_only`` the result holds the parameters' names only (no
-    BatchNorm statistics): the form for a gradient or optimizer-moment tree.
+    """State dict of ``model`` (a ``UNetTemplate``: ``UNet_light`` or the
+    fixed ``UNet``) from the JAX U-Net's ``{'params': ...,
+    ['batch_stats': ...]}``, standard or packed tree, with or without
+    remat.  With ``params_only`` the result holds the parameters' names
+    only (no BatchNorm statistics): the form for a gradient or
+    optimizer-moment tree.
 
     Raises ``ValueError`` when the tree does not fit the model's plan.
     """
-    params = variables["params"]
-    stats = {} if params_only else variables.get("batch_stats", {}) or {}
+    params = _unremat(variables["params"])
+    stats = {} if params_only else \
+        _unremat(variables.get("batch_stats", {}) or {})
     keys = set(params)
     candidates = [None] + list(range(1, len(model.encoders)))
     for nl in candidates:

@@ -1,12 +1,15 @@
-"""The configurable 3-D U-Net ``UNetTemplate`` (``UNet_light`` is its
-registered instantiation).
+"""3-D U-Nets: the configurable ``UNetTemplate`` (``UNet_light`` is its
+registered instantiation) and the fixed ``UNet``.
 
-Counterpart of ``deepatlas_tpu/models/unet.py::UNetTemplate`` for the
-maxpool-down / deconv-up plan.  The JAX package runs its shallow levels on
-lane-packed Pallas kernels and its deep levels on XLA convolutions, a split
-that exists only for the TPU's lane tiles; here every k3 conv, deconv and
-the class head run on the hand-written kernels, and max-pool, concat, bias,
-BatchNorm and activation are plain torch ops.
+Counterparts of ``deepatlas_tpu/models/unet.py::UNetTemplate`` for the
+maxpool-down / deconv-up plan, and of its ``UNet`` (ec0..ec7 with three
+max-pools and a 512-channel bottleneck, three k2 s2 transposed convs with
+skip concats, six decoder k3 convs, the 1x1x1 class head), which is that
+template at the fixed plan's channels.  The JAX package runs its shallow
+levels on lane-packed Pallas kernels and its deep levels on XLA
+convolutions, a split that exists only for the TPU's lane tiles; here every
+k3 conv, deconv and the class head run on the hand-written kernels, and
+max-pool, concat, bias, BatchNorm and activation are plain torch ops.
 
 Inputs are channel-last ``(B, D, H, W, C)``; outputs are raw logits
 ``(B, D, H, W, n_classes)``.
@@ -109,3 +112,33 @@ class UNetTemplate(nn.Module):
             for blk in level:
                 h = blk(h, train)
         return self.head(h)
+
+
+# the fixed UNet's plan as UNetTemplate channel tuples: ec0 1->32, ec1
+# 32->64 | pool | ec2 64->64, ec3 64->128 | pool | ec4 128->128, ec5
+# 128->256 | pool | ec6 256->256, ec7 256->512; then per level the up-conv
+# (512, 256, 128 channels kept), the concat with the skip and two convs
+UNET_ENCODERS = ((32, 64), (64, 64, 128), (128, 128, 256), (256, 256, 512))
+UNET_DECODERS = ((512, 256, 256), (256, 128, 128), (128, 64, 64))
+
+
+class UNet(UNetTemplate):
+    """The fixed 3-pool U-Net with ReLU activations; the JAX ``UNet``'s
+    keywords (``remat`` is not taken, as ``UNetTemplate`` takes none).
+
+    Its widest convs run kernel A at Cin 768 (the 512-channel up-conv
+    concatenated with the 256-channel skip), kernel C at 512 -> 512.
+    ``spatial_axis`` (depth sharding) belongs to the parallel tier, which is
+    not ported: any value but None raises.
+    """
+
+    def __init__(self, in_channel: int = 1, n_classes: int = 2,
+                 bias: bool = False, BN: bool = False,
+                 dtype: Optional[torch.dtype] = None, spatial_axis=None):
+        if spatial_axis is not None:
+            raise NotImplementedError(
+                "spatial_axis (the depth-sharded tier) is not ported to "
+                "PyTorch yet; see Queue 1 item 5 of ROADMAP.md")
+        super().__init__(UNET_ENCODERS, UNET_DECODERS, in_channel=in_channel,
+                         n_classes=n_classes, bias=bias, BN=BN, act="ReLU",
+                         dtype=dtype)

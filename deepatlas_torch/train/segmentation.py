@@ -4,7 +4,9 @@ Counterpart of ``deepatlas_tpu/train/segmentation.py``: the same experiment
 name and checkpoint-dir layout, MultiStep / plateau LR scheduling, periodic
 validation with per-class dice computed on the device, best-checkpoint
 tracking, scalars under the same tag names (into ``scalars.jsonl``, see
-``train/base.py``), config snapshot, resume, and a logging ``test()``.
+``train/base.py``), config snapshot, resume, a logging ``test()``, and the
+``profile_dir`` key: a ``torch.profiler`` trace of the second epoch, each
+training step a ``seg_train_step`` span.
 
 The device comes from the config key ``device`` (``cuda`` when absent; the
 experiment raises without a card unless ``device="cpu"`` is asked for).
@@ -28,7 +30,7 @@ from ..data import (Compose, CropVolume, DataLoader, LeftToRight,
                     VolumeToArray, endless, get_seg_dataset)
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
-from ..utils.profiling import ThroughputMeter
+from ..utils.profiling import ThroughputMeter, annotate, trace
 from .base import BaseExperiment, ScalarWriter, test_logger
 from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from, save_checkpoint
 from .schedules import make_scheduler, scheduler_from_restored
@@ -169,8 +171,14 @@ class SegmentationExperiment(BaseExperiment):
 
         print(self.config["samples_per_epoch"], self.config["batch_size"])
         print("Start Training:")
+        profile_dir = self.config.get("profile_dir")
         for _ in range(self.current_epoch, self.config["n_epochs"] + 1):
-            self.train_one_epoch()
+            if profile_dir and self.current_epoch == 2:
+                # trace the second epoch (the first builds the kernels)
+                with trace(profile_dir):
+                    self.train_one_epoch()
+            else:
+                self.train_one_epoch()
             if self.validate():
                 # pending until persisted: the save cadence is decoupled
                 # from the validation cadence, so a best found at a
@@ -204,7 +212,9 @@ class SegmentationExperiment(BaseExperiment):
         for i in range(iters_per_epoch):
             batch = next(self._train_iter)
             images, labels = self._to_device(batch)
-            self.state, loss, _ = self.train_step(self.state, images, labels)
+            with annotate("seg_train_step"):
+                self.state, loss, _ = self.train_step(self.state, images,
+                                                      labels)
             self.global_step = ((self.current_epoch - 1) * iters_per_epoch
                                 + (i + 1) * self.config["batch_size"])
             running_loss += float(loss)     # waits for the step

@@ -1,7 +1,18 @@
-"""Throughput observability (counterpart of
-``deepatlas_tpu/utils/profiling.py``'s ``ThroughputMeter`` and ``sync``)."""
+"""Profiling and throughput observability (counterpart of
+``deepatlas_tpu/utils/profiling.py``).
+
+  * ``trace`` / ``annotate`` -- a ``torch.profiler`` trace (host and, on a
+    card, device activity) written under a directory, and named spans in
+    it (``torch.profiler.record_function``).
+  * ``device_memory_stats`` -- the card's allocator counters under the JAX
+    package's names; ``{}`` for the CPU.
+  * ``ThroughputMeter`` -- steps/sec and volumes/sec/chip, EMA-smoothed.
+  * ``sync`` -- wait for the work queued on a device.
+"""
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Dict, Optional, Union
 
@@ -13,6 +24,45 @@ def sync(device: Union[str, torch.device]) -> None:
     runs asynchronously; on the CPU there is nothing to wait for)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the enclosed block with ``torch.profiler`` (the CPU, and the
+    card where there is one) and write its trace under ``log_dir``
+    (``<host>_<pid>.<time>.pt.trace.json``, readable by TensorBoard's
+    profiler plugin and by Perfetto).  Yields the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def annotate(name: str):
+    """Named span in the profiler's timeline (a context manager)."""
+    return torch.profiler.record_function(name)
+
+
+def device_memory_stats(device: Union[str, torch.device] = "cuda"
+                        ) -> Dict[str, int]:
+    """Bytes in use, the peak since the last reset and the card's total,
+    as ``bytes_in_use``, ``peak_bytes_in_use`` and ``bytes_limit``; empty
+    for the CPU or where there is no card."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return {}
+    stats = torch.cuda.memory_stats(device)
+    return {"bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak",
+                                               0)),
+            "bytes_limit": int(torch.cuda.get_device_properties(
+                device).total_memory)}
 
 
 class ThroughputMeter:

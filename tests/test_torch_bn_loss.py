@@ -272,8 +272,17 @@ def test_loss_registry(rng):
     got = get_loss_function("dice")(**settings)(torch.from_numpy(logits),
                                                 torch.from_numpy(target))
     np.testing.assert_allclose(got.item(), float(ref), atol=1e-5, rtol=1e-5)
-    for name in ("focal", "cross_entropy", "soft_cross_entropy"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_loss_function(name)
+    # the cross-entropy family builds from the same settings and computes
+    # the JAX values on the same logits
+    for name, kw in (("focal", {"class_num": NC, "gamma": 2.0}),
+                     ("cross_entropy", {}),
+                     ("soft_cross_entropy", {"n_class": NC,
+                                             "softmax": True})):
+        ref = jax_get_loss(name)(**kw)(jnp.asarray(logits),
+                                       jnp.asarray(target))
+        got = get_loss_function(name)(**kw)(torch.from_numpy(logits),
+                                            torch.from_numpy(target))
+        np.testing.assert_allclose(got.item(), float(ref), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
     with pytest.raises(KeyError):
         get_loss_function("nope")

@@ -1081,3 +1081,80 @@ def test_binned_sum_repeats_on_card(cuda):
         0, lab[keep], vals[keep].double())
     assert ((got.double() - exact).abs().max() / exact.abs().max()).item() \
         <= 1e-6
+
+
+# the fixed UNet's widest kernel shapes at small spatial sizes: A and D at
+# the decoder's concatenations (Cin 768 and 384), C at the 512-channel
+# up-conv (8 output channels a block fit the channel mix's shared memory at
+# Cin 512), B at the head's input width
+UNET_WIDE_K3 = [((1, 5, 6, 7), 768, 256), ((1, 6, 5, 9), 384, 128)]
+UNET_WIDE_MIX = [("deconv2x", (2, 2, 2), (1, 3, 4, 5), 512, 512),
+                 ("conv3d_point", (), (2, 6, 8, 10), 64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout", UNET_WIDE_K3)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unet_wide_k3_kernels_on_card(cuda, shape, cin, cout, dtype):
+    """A (forward and input gradient) and D at the fixed UNet's widest
+    convs, in both types, against the plain versions."""
+    from deepatlas_torch.kernels import (conv3d_k3, conv3d_k3_input_grad,
+                                         conv3d_k3_input_grad_plain,
+                                         conv3d_k3_plain)
+
+    x, w, b, g = _bf16_inputs(cuda, shape, cin, cout, 1)
+    x, g = x.to(dtype), g.to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    before = conv3d_k3.launches
+    _close(conv3d_k3(x, w, b), conv3d_k3_plain(x, w, b), tol)
+    _close(conv3d_k3_input_grad(g, w, shape[1:]),
+           conv3d_k3_input_grad_plain(g, w, shape[1:]), tol)
+    assert conv3d_k3.launches == before + 2
+    got = conv3d_k3_wgrad(x, g)
+    assert torch.equal(got, conv3d_k3_wgrad(x, g))
+    _close(got, conv3d_k3_wgrad_plain(x, g), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,wlead,shape,cin,cout", UNET_WIDE_MIX)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unet_wide_channel_mix_on_card(cuda, name, wlead, shape, cin, cout,
+                                       dtype):
+    """C at 512 -> 512 and B at 64 -> 32 launch (no "Cin too wide") and
+    match their plain versions, the same bits on a rerun."""
+    rng = np.random.RandomState(231)
+    fn, plain = KERNELS[name]
+    x = torch.from_numpy(rng.randn(*shape, cin).astype(np.float32)).to(
+        cuda, dtype)
+    w = torch.from_numpy((rng.randn(*wlead, cin, cout)
+                          / np.sqrt(cin)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).to(
+        cuda)
+    before = fn.launches
+    got = fn(x, w, bias)
+    assert fn.launches == before + 1
+    assert torch.equal(got, fn(x, w, bias))
+    _close(got, plain(x, w, bias), 1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_native_reader_matches_the_python_parser_on_card_host(cuda,
+                                                              tmp_path):
+    """The native I/O tier builds on the card's host and reads the bits the
+    Python parser reads, images and labels."""
+    from deepatlas_torch.data import (_native, read_counts, read_nifti,
+                                      reset_read_counts, write_nifti)
+
+    assert _native.available(), _native.build_error
+    rng = np.random.RandomState(232)
+    img = rng.rand(11, 13, 17).astype(np.float32)
+    seg = rng.randint(0, 32, (11, 13, 17)).astype(np.uint8)
+    reset_read_counts()
+    for name, data in (("img.nii.gz", img), ("seg.nii.gz", seg)):
+        write_nifti(tmp_path / name, data)
+        native = read_nifti(tmp_path / name)
+        python = read_nifti(tmp_path / name, prefer_native=False)
+        assert native.data.dtype == np.float32
+        assert np.array_equal(native.data, python.data.astype(np.float32))
+        assert native.spacing == python.spacing
+    assert read_counts() == {"native": 2, "fallback": 0}

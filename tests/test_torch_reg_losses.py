@@ -173,14 +173,25 @@ def test_jacobian_determinant_and_folding(rng):
                                atol=1e-4)
 
 
-def test_registration_keys_of_the_loss_registry():
-    ported = ("ncc", "lncc", "mse", "gradient", "bendingEnergy", "dice", "L2")
-    assert losses.get_available_losses() == ported
-    # in the JAX registry's order
-    assert [k for k in jlosses.get_available_losses() if k in ported] \
-        == list(ported)
+def test_registration_keys_of_the_loss_registry(rng):
+    # every key of the JAX registry, in its order
+    assert losses.get_available_losses() == jlosses.get_available_losses()
     lncc = losses.get_loss_function("lncc")(filter_size=5, eps=1e-5)
     assert lncc.keywords == {"filter_size": 5, "eps": 1e-5}
-    for name in ("focal", "cross_entropy", "soft_cross_entropy"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            losses.get_loss_function(name)
+    # the cross-entropy keys build with the JAX factories' keywords and
+    # compute the JAX values
+    logits = rng.randn(2, 4, 5, 3, 4).astype(np.float32)
+    target = rng.randint(0, 4, (2, 4, 5, 3)).astype(np.int32)
+    for name, kw in (
+            ("focal", {"class_num": 4, "alpha": [0.1, 0.2, 0.3, 0.4],
+                       "gamma": 1.5, "size_average": False}),
+            ("cross_entropy", {}),
+            ("soft_cross_entropy", {"n_class": 4, "softmax": True})):
+        ours = losses.get_loss_function(name)(**kw)
+        theirs = jlosses.get_loss_function(name)(**kw)
+        if kw:
+            assert ours.keywords == theirs.keywords
+        np.testing.assert_allclose(
+            ours(torch.from_numpy(logits), torch.from_numpy(target)).item(),
+            float(theirs(jnp.asarray(logits), jnp.asarray(target))),
+            rtol=1e-5, err_msg=name)

@@ -15,7 +15,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from deepatlas_tpu.models import UNet as JaxUNet
 from deepatlas_tpu.models import UNetLight as JaxUNetLight
+from deepatlas_tpu.models import \
+    get_available_networks as jax_get_available_networks
 from deepatlas_tpu.models.packed import transfer_unet_params
 from deepatlas_torch.models import (UNetLight, get_available_networks,
                                     get_network, unet_from_flax)
@@ -120,11 +123,23 @@ def test_bf16_matches_jax(nets):
 
 
 def test_registry_and_param_count(nets):
-    _, _, variables, model = nets
-    assert get_available_networks() == ("UNet_light", "voxel_morph_cvpr")
+    x, _, variables, model = nets
+    assert get_available_networks() == jax_get_available_networks()
     assert get_network("UNet_light") is UNetLight
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_network("UNet")
+    # the fixed UNet builds from the registry and computes the JAX logits
+    jax_unet = JaxUNet(in_channel=1, n_classes=NC, bias=True, BN=True)
+    unet_vars = randomize(dict(jax.jit(jax_unet.init,
+                                       static_argnames="train")(
+        jax.random.PRNGKey(1), jnp.asarray(x), train=False)),
+        np.random.RandomState(5))
+    unet = get_network("UNet")(in_channel=1, n_classes=NC, bias=True,
+                               BN=True).eval()
+    unet.load_state_dict(unet_from_flax(unet_vars, unet))
+    ref = np.asarray(jax_unet.apply(unet_vars, jnp.asarray(x), train=False))
+    with torch.inference_mode():
+        out = unet(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-4 * np.abs(ref).max(),
+                               rtol=0)
     with pytest.raises(KeyError):
         get_network("nope")
     n_flax = sum(np.size(a) for a in jax.tree_util.tree_leaves(

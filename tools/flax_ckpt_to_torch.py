@@ -37,8 +37,8 @@ def main(argv=None):
     ap.add_argument("--out", required=True,
                     help="directory for the deepatlas_torch checkpoint")
     ap.add_argument("--model", default="UNet_light",
-                    help="UNet_light, voxel_morph_cvpr, or deepatlas (a joint "
-                         "checkpoint of both)")
+                    help="UNet_light, UNet, voxel_morph_cvpr, or deepatlas (a "
+                         "joint checkpoint of both)")
     ap.add_argument("--n-classes", type=int,
                     help="classes of the U-Net's head (U-Net and joint "
                          "checkpoints)")
