@@ -14,7 +14,8 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      read a small volume and its labels as the Python parser does; its
      build seconds are logged.
   3. kernels -- each kernel against its plain PyTorch version at every
-     shape the six main paths launch it at, in float32 and bfloat16, with
+     shape the seven main paths launch it at, in float32 and bfloat16 (the
+     OAI patch path's convolutions in bfloat16, its type), with
      kernel / plain / library (cuDNN) times from CUDA events and the least
      time the card could take (``bound_ms``), and the kernel's and the
      library call's queued (device) times.  The k3 conv and its weight
@@ -32,7 +33,12 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      shapes.  The fixed UNet (unet_serving, unet_training): the same roles
      at its plan's shapes (A and D up to Cin 768, C at 512 -> 512, B at
      64 -> n_classes), with the weight-gradient kernel's float32 partial
-     sums (``wgrad_partial_bytes``) logged per shape.
+     sums (``wgrad_partial_bytes``) logged per shape.  OAI patch training
+     (oai_patch_training): UNet_light's training step on 2 x 128^3 with 5
+     classes, and the field ``augment``: the trilinear warp (unclamped,
+     one float32 channel) at 2 x 128^3 on the augmenter's rigid-plus-B-spline
+     grid, samples outside the volume included, against its plain version
+     and ``F.grid_sample``.
      Registration: one VoxelMorph step on a 168x200x168 pair --
      kernel A at its 11 forward (4 of them strided) and 10 input-gradient
      (4 strided: the parity-class launch in bfloat16, the stride-1 kernel
@@ -160,7 +166,20 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      step's median seconds, peak memory and kernel D's partial sums; then
      one step's gradients through the kernels against the plain versions
      (``unet_train_check``).
+ 11. oai_patch_training -- the segmentation experiment with the seg CLI's
+     config and the patch keys: 3 synthetic 160x384x384 OAI volumes (2 to
+     train, 1 to validate), UNet_light with 5 classes in bf16, balanced
+     128^3 patches two a step, the augmenter (B-spline, rigid, blur; kernel
+     E twice a step), 12 steps and one validation on the whole volume.
+     Launches per step (27 / 14 / 3 / 2 and E 2), finite losses, the step's
+     median seconds, patches per second, peak memory, the balanced
+     sampler's host ms per crop by class, the augmenter's device ms by
+     piece, one augmented batch against E's plain version, and the image
+     summaries written.
 
+The reg and joint phases also check their image summaries (every panel,
+or a named ``deform_grid`` line where matplotlib does not import; the
+validation's summary forward adds one VoxelMorph evaluation's launches).
 Then the ``nvidia-smi`` line, the kernels summary line and, last,
 ``{"ok": true, "device": {...}}``.  Run with no arguments:
 ``python3 chip_smoke.py``.
@@ -234,7 +253,10 @@ SOURCES_BY_DTYPE = {
 DETERMINISTIC = ("conv3d_k3_wgrad", "deconv2x", "conv3d_point",
                  "splat_trilinear")
 PATHS = ("serving", "training", "registration", "joint", "unet_serving",
-         "unet_training")
+         "unet_training", "oai_patch_training")
+# paths whose convolutions the kernels phase checks in bfloat16 only: the
+# type they run in (their float32 checks would repeat the training path's)
+BF16_ONLY_PATHS = ("oai_patch_training",)
 
 # relative tolerances max|kernel - plain| / max|plain|: float32 differs
 # only in summation order; bfloat16 inputs are identical on both sides and
@@ -411,8 +433,82 @@ def joint_reg_launches(substituted, fused_anatomy=True):
                         REG_ANATOMY_LAUNCHES[fused_anatomy])
 
 
+# OAI patch training (the seg experiment's patch keys): the serving tile as
+# the patch, two patches a step from the balanced sampler, the example of
+# make_augmenter's docstring, 12 steps and one validation on the whole
+# validation volume
+PATCH = (TILE,) * 3
+PATCH_BATCH = 2
+PATCH_STEPS = 12
+N_PATCH_VOLUMES = 3                 # 2 for training, 1 for validation
+PATCH_AUGMENTATION = {
+    "bspline": {"mesh_size": [3, 3, 3], "deform_scale": 2.0, "ratio": 0.5},
+    "rigid": {"rotation_angles": [5, 5, 5], "translation": [2, 2, 2],
+              "ratio": 0.5, "mode": "both"},
+    "blur": {"sigma": 0.7, "ratio": 0.3}}
+# the augmenter's launches per batch: the B-spline and the rigid image warp
+# on kernel E, one launch each over the batch (drawn or not: an element not
+# drawn warps by the identity); the label warps and the blur are plain
+AUGMENT_LAUNCHES = dict(NO_LAUNCHES, warp_trilinear=2)
+PATCH_STEP_LAUNCHES = add_launches(STEP_LAUNCHES, AUGMENT_LAUNCHES)
+# the image summaries of one validation: the first validation pair's
+# eval-mode VoxelMorph forward (the joint experiment adds the seg net's
+# evaluation of its moving volume, which its eval recorder counts)
+SUMMARY_LAUNCHES = REG_EVAL_LAUNCHES
+
+
 def log(obj):
     print(json.dumps(obj), flush=True)
+
+
+def optional_imports():
+    """Whether matplotlib (the ``deform_grid`` summaries) and tensorboard
+    (the event files beside ``images/``) import."""
+    import importlib
+
+    out = {}
+    for name in ("matplotlib", "tensorboard"):
+        try:
+            importlib.import_module(name)
+            out[name] = True
+        except ImportError:
+            out[name] = False
+    return out
+
+
+def written_images(log_root):
+    """The image summaries under ``log_root``: ``{tag: {"steps", "shape",
+    "min", "max"}}`` from every ``images/<tag>/<step>.npy``, and the number
+    of TensorBoard event files beside them."""
+    images, events = {}, 0
+    for dirpath, _, files in os.walk(log_root):
+        events += sum(f.startswith("events.out.tfevents") for f in files)
+        if os.path.basename(os.path.dirname(dirpath)) != "images":
+            continue
+        tag = os.path.basename(dirpath).replace("__", "/")
+        for name in sorted(files):
+            img = np.load(os.path.join(dirpath, name))
+            entry = images.setdefault(tag, {"steps": [], "shape": None,
+                                            "min": 1.0, "max": 0.0})
+            entry["steps"].append(int(name[:-4]))
+            entry["shape"] = list(img.shape)
+            entry["min"] = min(entry["min"], float(img.min()))
+            entry["max"] = max(entry["max"], float(img.max()))
+    return images, events
+
+
+def check_images(phase, images, want_tags, cli_lines):
+    """Every tag of ``want_tags`` written as a (3, H, W) image in [0, 1];
+    a ``deform_grid`` tag may instead be named on a line of its own where
+    matplotlib does not import."""
+    for tag in want_tags:
+        if tag.endswith("deform_grid") and tag not in images:
+            if any(f"{tag} not written" in ln for ln in cli_lines):
+                continue
+        got = images.get(tag)
+        if got is None or len(got["shape"]) != 3 or got["shape"][0] != 3 \
+                or not 0.0 <= got["min"] <= got["max"] <= 1.0:
+            raise AssertionError(f"{phase}: image summary {tag}: {got}")
 
 
 def ptxas_summary(text):
@@ -546,6 +642,8 @@ def all_cases():
                             N_CLASSES, False, model="UNet"))
     cases.update(unet_cases("unet_training", 1, TRAIN_SHAPE, TRAIN_CLASSES,
                             True, model="UNet"))
+    cases.update(unet_cases("oai_patch_training", PATCH_BATCH, PATCH,
+                            N_CLASSES, True))
     return cases
 
 
@@ -710,7 +808,8 @@ def check_kernels(seed):
             fn, plain = conv3d_k3_input_grad, conv3d_k3_input_grad_plain
             kw = {"dhw": size, "stride": 2}
             in_size = out_size
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in ((torch.bfloat16,) if path in BF16_ONLY_PATHS else
+                      (torch.float32, torch.bfloat16)):
             dname = str(dtype).split(".")[1]
             x = (torch.rand((batch,) + in_size + (cin,), generator=gen,
                             device="cuda") * 2 - 1).to(dtype)
@@ -1133,6 +1232,94 @@ def check_warp_kernels(summary, seed):
              for k in ("ms", "device_ms", "plain_ms", "library_ms",
                        "bound_ms")}})
 
+
+def augment_grid(seed):
+    """The OAI patch batch's augmentation field on the card: each
+    element's rigid grid (rotation and translation of ``PATCH_AUGMENTATION``
+    drawn from ``seed``) plus its B-spline displacement, both applied, as
+    ``(PATCH_BATCH, *PATCH, 3)`` float32; samples outside the volume
+    included."""
+    from deepatlas_torch.data import augment
+
+    aug = augment.make_augmenter(PATCH_AUGMENTATION)
+    draws = aug.draw((seed, 2 ** 20), PATCH_BATCH)
+    ctrl = draws["bspline"][0].cuda()
+    angles, trans = (t.cuda() for t in draws["rigid"][:2])
+    disp = augment.bspline_field_from_ctrl(
+        ctrl, PATCH, aug.bspline_args["mesh_size"], aug.bspline_args["order"])
+    return (augment.rigid_grid(angles, trans, PATCH) + disp).contiguous()
+
+
+def check_augment_field(summary, seed):
+    """Phase 3, the field ``augment``: kernel E (unclamped, one float32
+    channel, ``PATCH_BATCH`` x 128^3) on the augmenter's rigid-plus-B-spline
+    grid against its plain version (``WARP_TOL``) and ``F.grid_sample``,
+    with event, queued and library times and the byte bound.  Fills the
+    OAI patch unit of E: the augmenter's two launches a step."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepatlas_torch import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    grid = augment_grid(seed)
+    vol = torch.rand((PATCH_BATCH,) + PATCH + (1,), generator=gen,
+                     device="cuda")
+    outside = (grid.abs() > 1).any(dim=-1).float().mean().item()
+    vol_l = vol.permute(0, 4, 1, 2, 3)
+
+    def fn():
+        return kernels.warp_trilinear(vol, grid)
+
+    def plain():
+        return kernels.warp_trilinear_plain(vol, grid)
+
+    def library():
+        return F.grid_sample(vol_l, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    got, ref = fn(), plain()
+    lib = library().permute(0, 2, 3, 4, 1)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    lib_err = (got - lib).abs().max().item()
+    tol = WARP_TOL["warp_trilinear"]["float32"]
+    ok = bool(np.isfinite(err)) and err <= tol * scale \
+        and got.shape == ref.shape and got.dtype == ref.dtype
+    del got, ref, lib
+    n = int(np.prod(grid.shape[:4]))
+    nbytes = warp_bytes("warp_trilinear", n, 1, 4)
+    times = {"ms": cuda_ms(fn, reps=10),
+             "device_ms": cuda_ms(fn, reps=10, queued=True),
+             "plain_ms": cuda_ms(plain, reps=3),
+             "library_ms": cuda_ms(library, reps=10),
+             "library_device_ms": cuda_ms(library, reps=10, queued=True),
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log({"phase": "kernels", "kernel": "warp_trilinear",
+         "path": "oai_patch_training", "field": "augment",
+         "dtype": "float32", "vol": list(vol.shape), "max_disp": None,
+         "samples_outside_volume": outside, "max_abs_err": err,
+         "max_abs_ref": scale, "rel_tol": tol,
+         "max_abs_diff_f_grid_sample": lib_err, "ok": ok,
+         "kernel_ms": times["ms"], "kernel_device_ms": times["device_ms"],
+         "plain_ms": times["plain_ms"], "library_ms": times["library_ms"],
+         "library_device_ms": times["library_device_ms"],
+         "library": "F.grid_sample forward", "bound_ms": times["bound_ms"],
+         "bound_by": "bytes"})
+    if not ok or not outside > 0:
+        raise AssertionError(f"warp_trilinear on the augment field: max|k-p| "
+                             f"{err} > {tol} * {scale}, or no sample outside "
+                             f"the volume ({outside})")
+    summary["warp_trilinear"]["max_abs_err"] = max(
+        summary["warp_trilinear"]["max_abs_err"], err)
+    unit = summary["warp_trilinear"]["oai_patch_training"]
+    per_step = AUGMENT_LAUNCHES["warp_trilinear"]
+    for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+        unit[key] += per_step * times[key]
+    unit["bytes"] += per_step * float(nbytes)
+    del vol, vol_l, grid
+    torch.cuda.empty_cache()
 
 def block_labels(shape, shift=(0, 0, 0)):
     """``(B, D, H, W)`` int32 labels 0..31 on the card: a 4 x 4 x 2 grid of
@@ -2308,8 +2495,12 @@ def run_reg_path(seed, workdir):
     adjoint_err = abs(lhs.item() - rhs.item()) / abs(lhs.item())
 
     n_eval = len(rec.eval_launches)
+    # one validation, whose image summaries run the forward once more
     want = {k: TRAIN_STEPS * REG_STEP_LAUNCHES[k]
-            + n_eval * REG_EVAL_LAUNCHES[k] for k in REG_STEP_LAUNCHES}
+            + n_eval * REG_EVAL_LAUNCHES[k] + SUMMARY_LAUNCHES[k]
+            for k in REG_STEP_LAUNCHES}
+    images, events = written_images(os.path.join(workdir, "logs"))
+    cli_lines = out.getvalue().splitlines()
     sims = [m["sim"] for m in rec.losses]
     warm = sorted(rec.seconds[2:])
     train_wall = rec.last_end - rec.first_start
@@ -2335,7 +2526,12 @@ def run_reg_path(seed, workdir):
          "adjoint_identity_rel_tol": ADJOINT_TOL,
          "adjoint_check_launches": adjoint_launches,
          "checkpoints": [os.path.relpath(d, workdir) for d in run_dirs],
-         "cli_tail": out.getvalue().splitlines()[-6:]})
+         "launches_per_validation_summary": SUMMARY_LAUNCHES,
+         "images": images, "tensorboard_event_files": events,
+         "summary_lines": [ln for ln in cli_lines if "image summary" in ln],
+         "cli_tail": cli_lines[-6:]})
+    check_images("reg", images, [f"validation/{k}" for k in (
+        "images", "disp_field", "masks", "deform_grid")], cli_lines)
     if len(rec.losses) != TRAIN_STEPS or n_eval != 4:
         raise AssertionError(f"{len(rec.losses)} steps and {n_eval} "
                              f"evaluated pairs, expected {TRAIN_STEPS}, 4")
@@ -2604,9 +2800,13 @@ def run_joint_path(seed, workdir):
 
     seg_steps = [r for r in rec.steps if r["phase"] == "seg"]
     reg_steps = [r for r in rec.steps if r["phase"] == "reg"]
+    # the evaluations include the seg summary's; the reg summary's forward
+    # runs outside the eval step
     want = add_launches(*[r["expected"] for r in rec.steps],
                         *[EVAL_LAUNCHES if phase == "seg" else
-                          REG_EVAL_LAUNCHES for phase, _ in rec.evals])
+                          REG_EVAL_LAUNCHES for phase, _ in rec.evals],
+                        SUMMARY_LAUNCHES)
+    images, events = written_images(os.path.join(workdir, "logs"))
     regimes = {name: sum(r["regime"] == name for r in seg_steps)
                for name in REGIMES}
     substituted = [r["substituted"] for r in reg_steps]
@@ -2673,10 +2873,16 @@ def run_joint_path(seed, workdir):
          "test_reg_dice_avg": float(reg_dice),
          "test_folding_fraction": float(folding),
          "checkpoints": [os.path.relpath(d, workdir) for d in run_dirs],
+         "images": images, "tensorboard_event_files": events,
+         "summary_lines": [ln for ln in cli_lines if "image summary" in ln],
          "cli_tail": cli_lines[-4:]})
+    check_images("joint", images, [f"validation_reg/{k}" for k in (
+        "images", "disp_field", "masks", "deform_grid")]
+        + ["validation_seg/summary"], cli_lines)
+    # 2 validation and 2 test volumes, and the validation's seg summary
     if len(seg_steps) != JOINT_ITERATIONS // 2 \
             or len(reg_steps) != JOINT_ITERATIONS // 2 \
-            or [p for p, _ in rec.evals].count("seg") != 4 \
+            or [p for p, _ in rec.evals].count("seg") != 5 \
             or [p for p, _ in rec.evals].count("reg") != 4:
         raise AssertionError(f"{len(seg_steps)} seg and {len(reg_steps)} "
                              f"reg steps, evaluations {rec.evals}")
@@ -3131,6 +3337,274 @@ def run_unet_train_path(seed, workdir):
     return counts
 
 
+class TimedSampler:
+    """Wraps a crop sampler to record, per call, its target class and its
+    host seconds."""
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+        self.calls = []
+
+    def __call__(self, sample):
+        t0 = time.perf_counter()
+        out = self.sampler(sample)
+        self.calls.append((out.get("class"), time.perf_counter() - t0))
+        return out
+
+
+class AugmentRecorder:
+    """Wraps ``make_augmenter`` to record, per augmented batch, the kernels
+    it launched and its seconds (synchronised)."""
+
+    def __init__(self):
+        self.launches, self.seconds = [], []
+
+    def factory(self, make):
+        from deepatlas_torch.kernels import launch_counts
+
+        def wrapped(config):
+            augmenter = make(config)
+            if augmenter is None:
+                return None
+
+            def recorded(key, images, segs=None):
+                import torch
+
+                before = launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = augmenter(key, images, segs)
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                self.launches.append({k: v - before[k]
+                                      for k, v in launch_counts().items()})
+                return out
+
+            return recorded
+
+        return wrapped
+
+
+def augmenter_split(seed):
+    """The augmenter's device ms per ``PATCH_BATCH`` x 128^3 batch, queued
+    (``cuda_ms(queued=True)``), split into its B-spline field and rigid
+    grid, kernel E's two image warps, the two label warps and the blur;
+    and one batch through the kernels against the same batch and draws
+    with E on its plain version (``max_abs_err``, ``labels_equal``)."""
+    import torch
+
+    from deepatlas_torch import kernels
+    from deepatlas_torch.data import augment
+    from deepatlas_torch.ops import warp_labels
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    images = torch.rand((PATCH_BATCH,) + PATCH + (1,), generator=gen,
+                        device="cuda")
+    segs = torch.randint(0, N_CLASSES, (PATCH_BATCH,) + PATCH,
+                         generator=gen, device="cuda").to(torch.uint8)
+    aug = augment.make_augmenter(PATCH_AUGMENTATION)
+    draws = aug.draw((seed, 2 ** 20 + 1), PATCH_BATCH)
+    # every draw applied, so that each piece does its work
+    draws = {k: v[:-1] + (torch.ones(PATCH_BATCH, dtype=torch.bool),)
+             for k, v in draws.items()}
+    dev = {k: tuple(t.cuda() for t in v) for k, v in draws.items()}
+    args = aug.bspline_args
+
+    def fields():
+        return (augment.bspline_deform(*dev["bspline"], PATCH,
+                                       args["mesh_size"], args["order"]),
+                augment.rigid_deform(*dev["rigid"], PATCH))
+
+    grids = fields()
+    split = {
+        "field_ms": cuda_ms(fields, reps=5, queued=True),
+        "warp_kernel_ms": cuda_ms(lambda: [kernels.grid_sample(
+            images, g, max_disp=None) for g in grids], reps=5, queued=True),
+        "label_warp_ms": cuda_ms(lambda: [warp_labels(segs, g)
+                                          for g in grids], reps=5,
+                                 queued=True),
+        "blur_ms": cuda_ms(lambda: torch.where(
+            dev["blur"][0].view(-1, 1, 1, 1, 1),
+            augment.gaussian_blur(images, aug.sigma), images), reps=5,
+            queued=True),
+        "total_ms": cuda_ms(lambda: aug.apply(draws, images, segs), reps=5,
+                            queued=True)}
+    got_img, got_seg = aug.apply(draws, images, segs)
+    with plain_math(["warp_trilinear"]):
+        ref_img, ref_seg = aug.apply(draws, images, segs)
+    torch.cuda.synchronize()
+    err = (got_img - ref_img).abs().max().item()
+    scale = ref_img.abs().max().item()
+    tol = WARP_TOL["warp_trilinear"]["float32"]
+    check = {"max_abs_err": err, "max_abs_ref": scale, "rel_tol": tol,
+             "labels_equal": bool(torch.equal(got_seg, ref_seg)),
+             "ok": bool(np.isfinite(err)) and err <= tol * scale
+             and bool(torch.equal(got_seg, ref_seg))}
+    del images, segs, grids, got_img, ref_img, got_seg, ref_seg
+    torch.cuda.empty_cache()
+    return split, check
+
+
+def run_oai_patch_path(seed, workdir):
+    """Phase oai_patch_training: the seg experiment with the seg CLI's
+    config and the JAX experiment's patch keys -- OAI data (3 synthetic
+    160x384x384 volumes: 2 for training, 1 for validation, preloaded),
+    UNet_light with 5 classes in bf16, ``PATCH_BATCH`` balanced 128^3
+    patches a step (threshold 0.01), ``PATCH_AUGMENTATION``,
+    ``PATCH_STEPS`` steps and one validation on the whole validation
+    volume, so one training and one validation summary.  Per step the
+    UNet_light step's 27 / 14 / 3 / 2 launches and the augmenter's 2 of E,
+    1 evaluation; finite losses; the step's median seconds, the patch rate
+    in the steps and with loading, peak memory; the balanced sampler's host
+    ms per crop by target class; the augmenter's device ms by piece; one
+    augmented batch through E against its plain version; the image
+    summaries written."""
+    import torch
+
+    import train_seg_torch
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+    from deepatlas_torch.train import SegmentationExperiment, segmentation
+
+    t0 = time.perf_counter()
+    names = write_corpus(workdir, seed + 11, n_volumes=N_PATCH_VOLUMES)
+    for list_name, part in (("train.txt", names[:-1]),
+                            ("valid.txt", names[-1:])):
+        with open(os.path.join(workdir, list_name), "w") as f:
+            f.write("\n".join(part) + "\n")
+    setup_s = time.perf_counter() - t0
+
+    config = train_seg_torch.build_config(train_seg_torch.parse_args(
+        ["--data-root", workdir, "--log-root", "logs", "--num-samples", "21",
+         "--num-epochs", "1", "--preload", "--device", "cuda"]))
+    config.update(
+        data="OAI", n_classes=N_CLASSES,
+        class_name={k: str(k) for k in range(1, N_CLASSES)},
+        model_settings=dict(config["model_settings"], n_classes=N_CLASSES),
+        loss_settings=dict(config["loss_settings"], n_class=N_CLASSES),
+        crop_size=None, batch_size=PATCH_BATCH,
+        samples_per_epoch=PATCH_STEPS * PATCH_BATCH, print_batch_period=4,
+        patch_size=list(PATCH), sampler="balanced", patch_threshold=0.01,
+        augmentation=PATCH_AUGMENTATION, data_dir=workdir,
+        valid_data_dir=workdir,
+        training_list_file=os.path.join(workdir, "train.txt"),
+        validation_list_file=os.path.join(workdir, "valid.txt"),
+        testing_list_file=os.path.join(workdir, "valid.txt"))
+    rec = StepRecorder()
+    aug_rec = AugmentRecorder()
+    samplers = []
+    make_sampler = segmentation.SegmentationExperiment._patch_sampler
+
+    def timed_sampler(self):
+        samplers.append(TimedSampler(make_sampler(self)))
+        return samplers[-1]
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(workdir), contextlib.redirect_stdout(out), \
+            mock.patch.object(segmentation, "make_seg_train_step",
+                              rec.train_factory(
+                                  segmentation.make_seg_train_step)), \
+            mock.patch.object(segmentation, "make_seg_eval_step",
+                              rec.eval_factory(
+                                  segmentation.make_seg_eval_step)), \
+            mock.patch.object(segmentation, "make_augmenter",
+                              aug_rec.factory(segmentation.make_augmenter)), \
+            mock.patch.object(segmentation.SegmentationExperiment,
+                              "_patch_sampler", timed_sampler):
+        exp = SegmentationExperiment(config)
+        exp.train()
+        log_root = os.path.abspath(exp.ckpoint_dir)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    images, events = written_images(log_root)
+    imports = optional_imports()
+    split, check = augmenter_split(seed)
+
+    n_eval = len(rec.eval_launches)
+    want = add_launches(*[PATCH_STEP_LAUNCHES] * PATCH_STEPS,
+                        *[EVAL_LAUNCHES] * n_eval)
+    crops = samplers[0].calls if samplers else []
+    by_class = {}
+    for cls, sec in crops:
+        by_class.setdefault(str(cls), []).append(sec * 1e3)
+    warm = sorted(rec.seconds[2:])
+    cli_lines = out.getvalue().splitlines()
+    # where the wall clock of the training loop goes (from the first step's
+    # start to the last one's end): the steps, the augmenter (synchronised;
+    # the first batch's is before the first step), the wait for the loader
+    # (the first batch's included), and the rest (the host-to-device
+    # copies and the loop's own Python)
+    loader = exp.training_data_loader
+    wall = rec.last_end - rec.first_start
+    split_s = {"wall": wall, "steps": sum(rec.seconds),
+               "augmenter": sum(aug_rec.seconds[1:]),
+               "loader_wait": loader.wait_seconds}
+    split_s["rest"] = wall - sum(v for k, v in split_s.items()
+                                 if k != "wall")
+    log({"phase": "oai_patch_training", "volume_shape": OAI_SHAPE,
+         "patch": PATCH, "batch": PATCH_BATCH, "n_classes": N_CLASSES,
+         "augmentation": PATCH_AUGMENTATION, "steps": len(rec.losses),
+         "evaluated_volumes": n_eval, "launches": counts,
+         "launches_expected": want,
+         "launches_per_step": STEP_LAUNCHES,
+         "launches_per_augmented_batch": AUGMENT_LAUNCHES,
+         "augmenter_launches": aug_rec.launches, "losses": rec.losses,
+         "first_steps_s": rec.seconds[:2],
+         "step_s_median": warm[len(warm) // 2], "step_s_min": warm[0],
+         "step_s_max": warm[-1],
+         "patches_per_s_in_steps": PATCH_BATCH / (sum(warm) / len(warm)),
+         "patches_per_s_with_loading": PATCH_BATCH * len(rec.losses)
+         / (rec.last_end - rec.first_start),
+         "max_memory_allocated": peak,
+         "loop_split_s": split_s,
+         "augmenter_s_median": sorted(aug_rec.seconds)[PATCH_STEPS // 2],
+         "augmenter_device_ms": split, "augment_check": check,
+         "crops": len(crops), "crop_host_ms_by_class": {
+             k: {"n": len(v), "mean": float(np.mean(v)),
+                 "max": float(np.max(v))} for k, v in sorted(by_class.items())},
+         "crop_host_ms_mean": float(np.mean([c[1] for c in crops]) * 1e3)
+         if crops else None,
+         "loader_workers": loader.num_workers,
+         "ingest_wait_fraction": loader.wait_fraction,
+         "images": images, "tensorboard_event_files": events,
+         "imports": imports, "setup_s": setup_s, "experiment_s": total_s,
+         "cli_tail": cli_lines[-3:]})
+    if len(rec.losses) != PATCH_STEPS or n_eval != 1:
+        raise AssertionError(f"{len(rec.losses)} steps and {n_eval} "
+                             f"evaluated volumes, expected {PATCH_STEPS}, 1")
+    for i, got in enumerate(rec.step_launches):
+        if got != STEP_LAUNCHES:
+            raise AssertionError(f"step {i} launched {got}, expected "
+                                 f"{STEP_LAUNCHES}")
+    if aug_rec.launches != [AUGMENT_LAUNCHES] * PATCH_STEPS:
+        raise AssertionError(f"the augmenter launched {aug_rec.launches}, "
+                             f"expected {AUGMENT_LAUNCHES} a batch")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if not np.all(np.isfinite(rec.losses)):
+        raise AssertionError(f"non-finite losses {rec.losses}")
+    if not check["ok"]:
+        raise AssertionError(f"the augmented batch through kernel E differs "
+                             f"from its plain version: {check}")
+    # the loader's threads share the sampler, whose target class advances
+    # without a lock (as in the JAX package): two threads may draw the same
+    # class and skip the next, so only the range of the classes is held
+    if len(crops) < PATCH_STEPS * PATCH_BATCH \
+            or not {c for c, _ in crops} <= set(range(N_CLASSES + 1)):
+        raise AssertionError(f"the balanced sampler's crops: {by_class}")
+    check_images("oai_patch_training", images, ("training", "validation"),
+                 cli_lines)
+    if imports["tensorboard"] != (events > 0):
+        raise AssertionError(f"tensorboard imports {imports['tensorboard']}"
+                             f" but {events} event files")
+    return counts
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3157,7 +3631,8 @@ def main(argv=None):
          "count": torch.cuda.device_count(), "nvidia_smi": smi,
          "torch": torch.__version__, "cuda": torch.version.cuda,
          "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
-         "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
+         "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32,
+         "imports": optional_imports()})
 
     t0 = time.perf_counter()
     seconds = build.build()
@@ -3175,6 +3650,7 @@ def main(argv=None):
         check_upsample(args.seed)
         block = check_block_kernel(args.seed)
     check_warp_kernels(summary, args.seed)
+    check_augment_field(summary, args.seed)
     apart = check_anatomy_kernels(summary, args.seed)
     convs = run_conv_tools()
 
@@ -3183,12 +3659,14 @@ def main(argv=None):
                       ("registration", run_reg_path),
                       ("joint", run_joint_path),
                       ("unet_serving", run_unet_serving_path),
-                      ("unet_training", run_unet_train_path)):
+                      ("unet_training", run_unet_train_path),
+                      ("oai_patch_training", run_oai_patch_path)):
         with tempfile.TemporaryDirectory() as workdir:
             launches[path] = run(args.seed, workdir)
 
     step_tables = (STEP_LAUNCHES, EVAL_LAUNCHES, REG_STEP_LAUNCHES,
-                   REG_EVAL_LAUNCHES, joint_reg_launches(0),
+                   REG_EVAL_LAUNCHES, PATCH_STEP_LAUNCHES,
+                   joint_reg_launches(0),
                    *[joint_seg_launches(r) for r in REGIMES])
     kernels = []
     times = ("ms", "plain_ms", "bound_ms", "library_ms")
@@ -3237,7 +3715,10 @@ def main(argv=None):
                  "reg step without label substitution plus four seg steps, "
                  "one in each label regime (soft, f_hard, m_hard, hard), "
                  "and, for 'unet_serving' and 'unet_training', a tile "
-                 "batch and a training step of the fixed UNet: "
+                 "batch and a training step of the fixed UNet, and, for "
+                 "'oai_patch_training', one OAI patch step (UNet_light, 5 "
+                 "classes, 2 x 128^3, bfloat16; E: the augmenter's two "
+                 "warps on the kernels phase's field 'augment'): "
                  "bfloat16 for the convolutions, the smooth field for the "
                  "warp and anatomy kernels (float32 with one channel for "
                  "the image warps and the splat of ones, 32 channels for "
@@ -3245,7 +3726,7 @@ def main(argv=None):
                  "splat's one-hot stands in the kernels phase's line "
                  "joint_unit_with_f_hard_one_hot); matched_grid_grad, which "
                  "no main path launches, gives its time per call. launches "
-                 "are the six main paths' runs, read when each returns; "
+                 "are the seven main paths' runs, read when each returns; "
                  "max_abs_err is the largest over every shape "
                  "and type; library_ms of warp_grid_grad and of "
                  "splat_trilinear is the same F.grid_sample backward call, "

@@ -9,10 +9,10 @@ from .datasets import (RegDataSetBrains, RegDataSetMindBoggle,
 from .loader import DataLoader, endless
 from .nifti import (NiftiImage, read_counts, read_nifti, reset_read_counts,
                     write_nifti)
-from .transforms import (BilateralFilter, Compose, CropVolume,
-                         IdentityTransform, LeftToRight, Normalization,
-                         PadVolume, Partition, Resample,
-                         SegmentationLabelFilter, VolumeToArray)
+from .transforms import (BalancedRandomCrop, BilateralFilter, Compose,
+                         CropVolume, IdentityTransform, LeftToRight,
+                         Normalization, PadVolume, Partition, RandomCrop,
+                         Resample, SegmentationLabelFilter, VolumeToArray)
 
 __all__ = [
     "NiftiImage", "read_counts", "read_nifti", "reset_read_counts",
@@ -21,7 +21,8 @@ __all__ = [
     "SegDataSetOAIZIB", "SegDataSetOASIS", "get_seg_dataset",
     "RegDataSetBrains", "RegDataSetMindBoggle", "RegDataSetOAIZIB",
     "RegDataSetOASIS", "get_reg_dataset",
-    "DataLoader", "endless", "BilateralFilter", "Compose", "CropVolume",
-    "IdentityTransform", "LeftToRight", "Normalization", "PadVolume",
-    "Partition", "Resample", "SegmentationLabelFilter", "VolumeToArray",
+    "DataLoader", "endless", "BalancedRandomCrop", "BilateralFilter",
+    "Compose", "CropVolume", "IdentityTransform", "LeftToRight",
+    "Normalization", "PadVolume", "Partition", "RandomCrop", "Resample",
+    "SegmentationLabelFilter", "VolumeToArray",
 ]

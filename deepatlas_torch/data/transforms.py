@@ -9,6 +9,8 @@ images, as in ``deepatlas_tpu.data.transforms``:
   * ``CropVolume``    -- border crop (the MindBoggle training recipe).
   * ``PadVolume``     -- pad to a target (D, H, W) shape.
   * ``SegmentationLabelFilter`` -- label zeroing.
+  * ``RandomCrop`` / ``BalancedRandomCrop`` -- OAI patch sampling (a
+    random ROI above a foreground fraction; class-targeted ROIs in turn).
   * ``Resample``      -- resample to a target voxel size (image trilinear,
     labels nearest-neighbour) through the native tier.
   * ``Normalization`` -- zero-mean / unit-variance image, native tier.
@@ -28,7 +30,7 @@ uint8, 'name': str, ['spacing': (sx,sy,sz), 'like': NiftiImage]}.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
@@ -150,6 +152,92 @@ class SegmentationLabelFilter:
                 seg[seg == label] = 0
             sample["segmentation"] = seg
         return sample
+
+
+def _rand_start(rng, extent):
+    """A crop's start on one axis: ``randint(0, extent)``, so the last
+    start position ``extent`` itself is never drawn."""
+    return rng.randint(0, extent) if extent > 0 else 0
+
+
+class RandomCrop:
+    """Random ROI crop of ``output_size`` (D, H, W) whose foreground
+    fraction (labels summed over the crop's voxels) exceeds ``threshold``.
+
+    At most ``max_tries`` draws from ``random_state`` (a
+    ``np.random.RandomState``); after that the last crop is returned even
+    if it is below the threshold."""
+
+    def __init__(self, output_size: Union[int, Sequence[int]],
+                 threshold: float = 0.0, random_state=None,
+                 max_tries: int = 100):
+        if isinstance(output_size, int):
+            output_size = (output_size,) * 3
+        self.size = tuple(output_size)
+        self.threshold = threshold
+        self.rng = random_state or np.random.RandomState()
+        self.max_tries = max_tries
+
+    def _crop_at(self, sample, start):
+        sl = tuple(slice(s, s + n) for s, n in zip(start, self.size))
+        out = dict(sample)
+        out["image"] = sample["image"][sl]
+        if sample.get("segmentation") is not None:
+            out["segmentation"] = sample["segmentation"][sl]
+        return out
+
+    def __call__(self, sample):
+        img = sample["image"]
+        extent = [img.shape[i] - self.size[i] for i in range(3)]
+        for _ in range(self.max_tries):
+            start = [_rand_start(self.rng, e) for e in extent]
+            out = self._crop_at(sample, start)
+            seg = out.get("segmentation")
+            if seg is None or self.threshold <= 0:
+                return out
+            if seg.sum() / seg.size > self.threshold:
+                return out
+        return out
+
+
+class BalancedRandomCrop(RandomCrop):
+    """Class-targeted ROI crops in turn: each call targets one class and
+    draws until that class's fraction of the crop exceeds its threshold
+    (at most ``max_tries`` draws; class 0 takes the first draw), then sets
+    ``out["class"]`` and moves on.  The target starts at ``min(2,
+    n_classes - 1)`` and cycles through ``0..n_classes`` inclusive: class
+    ``n_classes``, in no mask, spends all its tries.  A float ``threshold``
+    applies to every class.  The target advances without a lock, so
+    loader threads sharing one sampler draw in the order they run."""
+
+    def __init__(self, output_size, threshold=0.01, n_classes: int = 3,
+                 random_state=None, max_tries: int = 100):
+        super().__init__(output_size, 0.0, random_state, max_tries)
+        if isinstance(threshold, float):
+            threshold = (threshold,) * n_classes
+        self.thresholds = tuple(threshold)
+        self.n_classes = n_classes
+        self.current_class = min(2, n_classes - 1)
+
+    def __call__(self, sample):
+        img = sample["image"]
+        extent = [img.shape[i] - self.size[i] for i in range(3)]
+        target = self.current_class
+        out = None
+        for _ in range(self.max_tries):
+            start = [_rand_start(self.rng, e) for e in extent]
+            out = self._crop_at(sample, start)
+            seg = out.get("segmentation")
+            if seg is None or target == 0:
+                break
+            frac = np.mean(seg == target)
+            if frac > self.thresholds[min(target, len(self.thresholds) - 1)]:
+                break
+        out["class"] = target
+        self.current_class += 1
+        if self.current_class > self.n_classes:
+            self.current_class = 0
+        return out
 
 
 class Resample:

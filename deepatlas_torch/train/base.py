@@ -2,8 +2,10 @@
 
 Counterpart of ``deepatlas_tpu/train/base.py``: ``__init__(config)`` then
 ``train()`` / ``test()``, with the setup_log / seed / model / loss / data /
-optimizer lifecycle.  Scalars go to ``ScalarWriter``, a JSON-lines file
-under the tag names the JAX package gives its TensorBoard scalars.
+optimizer lifecycle.  Scalars and images go to ``ScalarWriter`` under the
+tag names the JAX package gives its TensorBoard summaries: a JSON-lines
+file and ``.npy`` files, and TensorBoard event files where the
+``tensorboard`` package imports.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import json
 import logging
 import os
 import random
+import sys
+import types
 
 import numpy as np
 import torch
@@ -18,24 +22,66 @@ import torch
 from ..utils.config import save_dict_to_json
 
 
+def _summary_writer(log_dir: str):
+    """``torch.utils.tensorboard.SummaryWriter(log_dir)``, or None where
+    the ``tensorboard`` package does not import.  TensorBoard's TensorFlow
+    switch is set to its stub first (``tensorboard.compat.notf``): the
+    event files are the same, and the process does not import TensorFlow
+    where it happens to be installed."""
+    sys.modules.setdefault("tensorboard.compat.notf",
+                           types.ModuleType("tensorboard.compat.notf"))
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)
+
+
 class ScalarWriter:
     """``add_scalar(tag, value, global_step)`` into ``<dir>/scalars.jsonl``,
-    one JSON object per line, flushed as written."""
+    one JSON object per line, flushed as written; ``add_image(tag, img,
+    global_step)`` into ``<dir>/images/<tag, "/" as "__">/<step>.npy``.
+    Both go to TensorBoard event files in ``<dir>`` too where the
+    ``tensorboard`` package imports (``tensorboard`` is None where it does
+    not)."""
 
     FILE_NAME = "scalars.jsonl"
+    IMAGE_DIR = "images"
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
         self.path = os.path.join(log_dir, self.FILE_NAME)
         self._file = open(self.path, "a")
+        self.tensorboard = _summary_writer(log_dir)
 
     def add_scalar(self, tag: str, value, global_step: int) -> None:
         self._file.write(json.dumps({"tag": tag, "value": float(value),
                                      "step": int(global_step)}) + "\n")
         self._file.flush()
+        if self.tensorboard is not None:
+            self.tensorboard.add_scalar(tag, float(value), int(global_step))
+
+    def image_path(self, tag: str, global_step: int) -> str:
+        return os.path.join(self.log_dir, self.IMAGE_DIR,
+                            tag.replace("/", "__"), f"{int(global_step)}.npy")
+
+    def add_image(self, tag: str, img, global_step: int) -> None:
+        """``img`` is a ``(3, H, W)`` array in [0, 1], stored as float32."""
+        img = np.asarray(img, dtype=np.float32)
+        if img.ndim != 3 or img.shape[0] != 3:
+            raise ValueError(f"add_image {tag!r}: expected a (3, H, W) "
+                             f"image, got {img.shape}")
+        path = self.image_path(tag, global_step)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, img)
+        if self.tensorboard is not None:
+            self.tensorboard.add_image(tag, img, int(global_step))
 
     def close(self) -> None:
         self._file.close()
+        if self.tensorboard is not None:
+            self.tensorboard.close()
 
 
 class BaseExperiment:

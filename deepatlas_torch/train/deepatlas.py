@@ -19,13 +19,19 @@ displacement-overflow guard escalates by default along the reference's
 ladder: ``max_disp`` 8 -> 10 -> unclamped (the last rung also turns
 ``fused_anatomy`` and ``hard_fused`` off).
 
+``augmentation`` (``data/augment.py``) augments the moving and the fixed
+side of each training batch on the device, from sub-keys 0 and 1 of the
+step's key.  With ``image_summary`` (default True) each validation writes
+the registration panels of the first validation pair
+(``validation_reg/*``) and the seg net's summary of its moving volume
+(``validation_seg/summary``).
+
 The device comes from the config key ``device`` (``cuda`` when absent; the
 experiment raises without a card unless ``device="cpu"`` is asked for).
 Not ported yet, and rejected rather than ignored when a config asks for
-them: ``data_parallel``, ``spatial_shards`` (the parallel tiers),
-``augmentation`` (the device-side augmenter) and ``image_summary`` (the
-TensorBoard image panels); ``checkpoint_seg_apply`` is rejected for good
-(see ``make_joint_seg_step``).
+them: ``data_parallel`` and ``spatial_shards`` (the parallel tiers);
+``checkpoint_seg_apply`` is rejected for good (see
+``make_joint_seg_step``).
 """
 from __future__ import annotations
 
@@ -40,20 +46,23 @@ import torch
 from .. import resolve_device
 from ..data import (Compose, CropVolume, DataLoader, VolumeToArray, endless,
                     get_reg_dataset, get_seg_dataset)
+from ..data.augment import fold_in, make_augmenter
 from ..kernels import grid_sample
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
+from ..utils import visualize
 from .base import BaseExperiment, ScalarWriter, test_logger
 from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from, save_checkpoint
 from .guard import make_guard
 from .reg_steps import (make_joint_reg_step, make_joint_seg_step,
                         make_reg_eval_step)
+from .registration import write_registration_summaries
 from .schedules import make_scheduler, scheduler_from_restored
+from .segmentation import summary_slices
 from .steps import (TrainState, make_optimizer, make_seg_eval_step,
                     set_learning_rate)
 
-_NOT_PORTED = ("data_parallel", "spatial_shards", "augmentation",
-               "image_summary")
+_NOT_PORTED = ("data_parallel", "spatial_shards")
 
 # The escalation ladder's last clamped rung, in voxels: the JAX package's
 # MAX_PACKED_DISP (deepatlas_tpu/pallas/warp.py), the widest bound its TPU
@@ -182,6 +191,7 @@ class DeepAtlasExperiment(BaseExperiment):
             self.reg_model, self.config.get("reg_learning_rate",
                                             self.config["learning_rate"])))
         self._build_steps()
+        self.augmenter = make_augmenter(self.config.get("augmentation"))
         # escalate by default: the unclamped warp is the reference's
         # semantics, and a clamp-saturated field trains a surrogate of it
         self.overflow_guard = make_guard(self.config,
@@ -325,10 +335,15 @@ class DeepAtlasExperiment(BaseExperiment):
         run_seg = {"loss": 0.0, "supervised": 0.0, "anatomy": 0.0}
         for i in range(iters):
             batch_m, batch_f = next(self._train_iter)
-            args = (self._to_device(batch_m, "image"),
-                    self._to_device(batch_f, "image"),
-                    self._to_device(batch_m, "segmentation"),
-                    self._to_device(batch_f, "segmentation"),
+            img_m = self._to_device(batch_m, "image")
+            img_f = self._to_device(batch_f, "image")
+            seg_m = self._to_device(batch_m, "segmentation")
+            seg_f = self._to_device(batch_f, "segmentation")
+            if self.augmenter is not None:
+                akey = (self.config["random_seed"], 2 ** 20 + self.global_step)
+                img_m, seg_m = self.augmenter(fold_in(akey, 0), img_m, seg_m)
+                img_f, seg_f = self.augmenter(fold_in(akey, 1), img_f, seg_f)
+            args = (img_m, img_f, seg_m, seg_f,
                     self._has_label_flags(batch_m),
                     self._has_label_flags(batch_f))
             # alternate phases (seg on even iterations, reg on odd)
@@ -429,11 +444,26 @@ class DeepAtlasExperiment(BaseExperiment):
                                reg_dice, self.global_step)
         self.writer.add_scalar(f"validation_{data_name}/folding_fraction",
                                folding, self.global_step)
+        if self.config.get("image_summary", True):
+            self._write_image_summaries()
         print("Validation: seg dice {:.4f} reg dice {:.4f} folding {:.5f} "
               "({:.3f} sec) {}".format(
                   seg_dice, reg_dice, folding, time.time() - start,
                   datetime.datetime.now().strftime("%D %H:%M:%S")))
         return seg_best or reg_best
+
+    def _write_image_summaries(self):
+        """The registration panels of the first validation pair
+        (``validation_reg/*``) and the seg net's summary of its moving
+        volume (``validation_seg/summary``)."""
+        moving, mseg = write_registration_summaries(
+            self.writer, self.reg_model, self.validation_reg_loader,
+            self.device, "validation_reg", self.global_step)
+        _, seg_logits = self.seg_eval_step(self.seg_state, moving, mseg)
+        seg_img = visualize.make_segmentation_image_summary(*summary_slices(
+            moving.cpu().numpy(), mseg.cpu().numpy(), seg_logits))
+        self.writer.add_image("validation_seg/summary", seg_img,
+                              self.global_step)
 
     # -------------------------------------------------------------- test
     def test(self, best: bool = True, if_log: bool = True):

@@ -7,14 +7,16 @@ and ``reg_best_score`` checkpoint key, scalars under the same tag names
 (into ``scalars.jsonl``, see ``train/base.py``), resume and a logging
 ``test()``.  Validation warps the moving labels with the predicted field and
 reports the mean foreground dice and the Jacobian folding fraction, both
-computed on the device.
+computed on the device.  With ``image_summary`` (default True) each
+validation writes the image panels of the first validation pair
+(``validation/{images,disp_field,masks,deform_grid}``,
+``write_registration_summaries``).
 
 The device comes from the config key ``device`` (``cuda`` when absent; the
 experiment raises without a card unless ``device="cpu"`` is asked for).
 
 Not ported yet, and rejected rather than ignored when a config asks for
-them: ``data_parallel``, ``spatial_shards`` (the parallel tiers) and
-``image_summary`` (the TensorBoard image panels; none are written).  The
+them: ``data_parallel`` and ``spatial_shards`` (the parallel tiers).  The
 model settings that choose between the JAX package's TPU execution paths
 (``packed``, ``use_pallas_warp``, ...) have no counterpart: the model's
 constructor refuses them.
@@ -22,6 +24,7 @@ constructor refuses them.
 from __future__ import annotations
 
 import datetime
+import importlib.util
 import os
 import time
 
@@ -33,13 +36,52 @@ from ..data import (Compose, CropVolume, DataLoader, VolumeToArray, endless,
                     get_reg_dataset)
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
+from ..ops import warp_labels
+from ..utils import visualize
 from .base import BaseExperiment, ScalarWriter, test_logger
 from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from, save_checkpoint
 from .reg_steps import make_reg_eval_step, make_reg_train_step
 from .schedules import make_scheduler, scheduler_from_restored
 from .steps import TrainState, make_optimizer, set_learning_rate
 
-_NOT_PORTED = ("data_parallel", "spatial_shards", "image_summary")
+_NOT_PORTED = ("data_parallel", "spatial_shards")
+
+
+def write_registration_summaries(writer, model, loader, device,
+                                 prefix: str, global_step: int):
+    """The image panels of ``loader``'s first pair under ``prefix``: the
+    model's eval-mode forward, the moving labels warped by nearest
+    neighbour, ``make_registration_image_summary``'s grids (``images``,
+    ``disp_field``, ``masks``) and the contour grid of the deformation's
+    mid-depth slice (``deform_grid``, which needs matplotlib: where it does
+    not import, one line names the skipped tag).  Returns the pair's
+    moving image and labels on ``device``."""
+    batch_m, batch_f = next(iter(loader))
+    moving = torch.from_numpy(batch_m["image"][:1]).to(device)
+    fixed = torch.from_numpy(batch_f["image"][:1]).to(device)
+    mseg = torch.from_numpy(batch_m["segmentation"][:1]).to(device).long()
+    with torch.no_grad():
+        disp, warped, deform = model(moving, fixed, train=False)
+        warped_seg = warp_labels(mseg, deform)
+    warped = warped.float().cpu().numpy()
+    deform = deform.float().cpu().numpy()
+    grids = visualize.make_registration_image_summary(
+        batch_m["image"][:1], batch_f["image"][:1], warped,
+        disp.float().cpu().numpy(), deform, mseg.cpu().numpy(),
+        batch_f["segmentation"][:1], warped_seg.cpu().numpy())
+    for name, img in grids.items():
+        writer.add_image(f"{prefix}/{name}", img, global_step)
+    if importlib.util.find_spec("matplotlib") is None:
+        print(f"=> matplotlib does not import: image summary "
+              f"{prefix}/deform_grid not written")
+    else:
+        mid = deform.shape[1] // 2
+        writer.add_image(f"{prefix}/deform_grid",
+                         visualize.generate_deform_grid(
+                             deform[0, mid, :, :, 0:2],
+                             np.clip(warped[0, mid, :, :, 0], 0, 1)),
+                         global_step)
+    return moving, mseg
 
 
 class RegistrationExperiment(BaseExperiment):
@@ -268,6 +310,10 @@ class RegistrationExperiment(BaseExperiment):
                                self.global_step)
         self.writer.add_scalar(f"validation_{data_name}/folding_fraction",
                                folding, self.global_step)
+        if self.config.get("image_summary", True):
+            write_registration_summaries(
+                self.writer, self.model, self.validation_data_loader,
+                self.device, "validation", self.global_step)
         print("Validation: Dice Avg: {:.4f} folding {:.5f} ({:.3f} sec) {}"
               .format(dice_avg, folding, time.time() - start,
                       datetime.datetime.now().strftime("%D %H:%M:%S")))

@@ -8,13 +8,22 @@ tracking, scalars under the same tag names (into ``scalars.jsonl``, see
 ``profile_dir`` key: a ``torch.profiler`` trace of the second epoch, each
 training step a ``seg_train_step`` span.
 
+OAI patch training: ``patch_size`` (D, H, W) draws one crop per training
+volume through ``RandomCrop`` (``sampler`` "random", ``patch_threshold``
+default 0.0) or ``BalancedRandomCrop`` (``sampler`` "balanced",
+``patch_threshold`` default 0.01), seeded from ``random_seed``; validation
+and ``test()`` see whole volumes.  ``augmentation`` (``data/augment.py``)
+augments each training batch on the device before its step.  Image
+summaries: the last training batch every ``save_ckpts_epoch_period``
+epochs (tag ``training``: the batch as loaded, the logits of the
+augmented one) and the last validation batch (``validation``).
+
 The device comes from the config key ``device`` (``cuda`` when absent; the
 experiment raises without a card unless ``device="cpu"`` is asked for).
 
 Not ported yet, and rejected rather than ignored when a config asks for
-them: ``data_parallel``, ``spatial_shards`` (the parallel tiers),
-``augmentation`` (the device-side augmenter) and ``patch_size`` (the patch
-samplers); image summaries are not written.  ROADMAP.md lists them.
+them: ``data_parallel`` and ``spatial_shards`` (the parallel tiers).
+ROADMAP.md lists them.
 """
 from __future__ import annotations
 
@@ -26,10 +35,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data import (Compose, CropVolume, DataLoader, LeftToRight,
-                    VolumeToArray, endless, get_seg_dataset)
+from ..data import (BalancedRandomCrop, Compose, CropVolume, DataLoader,
+                    LeftToRight, RandomCrop, VolumeToArray, endless,
+                    get_seg_dataset)
+from ..data.augment import make_augmenter
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
+from ..utils import visualize
 from ..utils.profiling import ThroughputMeter, annotate, trace
 from .base import BaseExperiment, ScalarWriter, test_logger
 from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from, save_checkpoint
@@ -37,8 +49,23 @@ from .schedules import make_scheduler, scheduler_from_restored
 from .steps import (TrainState, make_optimizer, make_seg_eval_step,
                     make_seg_train_step, set_learning_rate)
 
-_NOT_PORTED = ("data_parallel", "spatial_shards", "augmentation",
-               "patch_size")
+_NOT_PORTED = ("data_parallel", "spatial_shards")
+
+# the batch elements a segmentation summary shows
+SUMMARY_BATCH = 4
+
+
+def summary_slices(images: np.ndarray, truths: np.ndarray,
+                   logits: torch.Tensor):
+    """The mid-depth slices that ``make_segmentation_image_summary`` reads,
+    of the first ``SUMMARY_BATCH`` elements, on the host: ``(B', 1, H, W,
+    C)`` images, ``(B', 1, H, W)`` truths and ``(B', 1, H, W, n_classes)``
+    float32 logits (cut on the logits' device, then copied).  The summary
+    of these slices equals the summary of the whole arrays."""
+    mid = images.shape[1] // 2
+    cut = (slice(0, SUMMARY_BATCH), slice(mid, mid + 1))
+    return (np.array(images[cut]), np.array(truths[cut]),
+            logits[cut].float().cpu().numpy())
 
 
 class SegmentationExperiment(BaseExperiment):
@@ -95,6 +122,21 @@ class SegmentationExperiment(BaseExperiment):
             transforms.append(CropVolume(self.config["crop_size"]))
         return Compose(transforms)
 
+    def _patch_sampler(self):
+        """OAI patch training: a running transform drawing random or
+        class-balanced ROI crops of ``patch_size``; None without one."""
+        patch = self.config.get("patch_size")
+        if not patch:
+            return None
+        rng = np.random.RandomState(self.config["random_seed"])
+        if self.config.get("sampler", "random") == "balanced":
+            return BalancedRandomCrop(
+                patch, threshold=self.config.get("patch_threshold", 0.01),
+                n_classes=self.config["n_classes"], random_state=rng)
+        return RandomCrop(patch,
+                          threshold=self.config.get("patch_threshold", 0.0),
+                          random_state=rng)
+
     def setup_train_data(self):
         print("Initializing dataloader")
         dataset_cls = get_seg_dataset(self.config["data"])
@@ -102,7 +144,8 @@ class SegmentationExperiment(BaseExperiment):
         training_data = dataset_cls(
             self.config["training_list_file"], self.config["data_dir"],
             with_seg=True, preload=self.config.get("preload", False),
-            pre_transform=tf, n_samples=self.config["num_samples"] * 2)
+            pre_transform=tf, running_transform=self._patch_sampler(),
+            n_samples=self.config["num_samples"] * 2)
         self.training_data_loader = DataLoader(
             training_data, batch_size=self.config["batch_size"], shuffle=True,
             seed=self.config["random_seed"],
@@ -140,6 +183,7 @@ class SegmentationExperiment(BaseExperiment):
                                        self.config["learning_rate"]))
         self.train_step = make_seg_train_step(self.criterion)
         self.eval_step = make_seg_eval_step(self.config["n_classes"])
+        self.augmenter = make_augmenter(self.config.get("augmentation"))
 
     def _maybe_resume(self):
         resume_dir = self.config.get("resume_dir")
@@ -209,12 +253,16 @@ class SegmentationExperiment(BaseExperiment):
                            // self.config["batch_size"])
         meter = ThroughputMeter(n_chips=1)
         meter.start()
+        batch = logits = None
         for i in range(iters_per_epoch):
             batch = next(self._train_iter)
             images, labels = self._to_device(batch)
+            if self.augmenter is not None:
+                akey = (self.config["random_seed"], 2 ** 20 + self.global_step)
+                images, labels = self.augmenter(akey, images, labels)
             with annotate("seg_train_step"):
-                self.state, loss, _ = self.train_step(self.state, images,
-                                                      labels)
+                self.state, loss, logits = self.train_step(self.state,
+                                                           images, labels)
             self.global_step = ((self.current_epoch - 1) * iters_per_epoch
                                 + (i + 1) * self.config["batch_size"])
             running_loss += float(loss)     # waits for the step
@@ -240,24 +288,39 @@ class SegmentationExperiment(BaseExperiment):
                                        global_step=self.global_step)
                 running_loss = 0.0
 
+        if (batch is not None and self.current_epoch
+                % self.config["save_ckpts_epoch_period"] == 0):
+            summary = visualize.make_segmentation_image_summary(
+                *summary_slices(batch["image"], batch["segmentation"],
+                                logits))
+            self.writer.add_image("training", summary,
+                                  global_step=self.global_step)
+
     # -------------------------------------------------------------- eval
     def eval(self, dataloader):
+        """``(dice_per_class, dice_avg, sample)``: the foreground dice over
+        the loader's volumes and, for the summary, ``summary_slices`` of
+        the last batch (None for an empty loader)."""
         n_fg = self.config["n_classes"] - 1
         dice_sum = np.zeros((n_fg,), np.float64)
         count = 0
+        last = None
         for batch in dataloader:
             images, labels = self._to_device(batch)
-            dice, _ = self.eval_step(self.state, images, labels)
+            dice, logits = self.eval_step(self.state, images, labels)
             dice_sum += dice.double().sum(dim=0).cpu().numpy()
             count += dice.shape[0]
+            last = (batch["image"], batch["segmentation"], logits)
         dice_per_class = dice_sum / max(count, 1)
-        return dice_per_class, float(dice_per_class.mean())
+        sample = None if last is None else summary_slices(*last)
+        return dice_per_class, float(dice_per_class.mean()), sample
 
     def validate(self):
         if self.current_epoch % self.config["valid_epoch_period"]:
             return False
         start = time.time()
-        dice_per_class, dice_avg = self.eval(self.validation_data_loader)
+        dice_per_class, dice_avg, sample = self.eval(
+            self.validation_data_loader)
         new_lr = self.scheduler.step(
             dice_avg if self.config["lr_mode"] == "plateau" else None)
         self.state = set_learning_rate(self.state, new_lr)
@@ -275,6 +338,10 @@ class SegmentationExperiment(BaseExperiment):
                 "validation_{}/dice_{}".format(
                     data_name, class_name.get(c + 1, str(c + 1))),
                 dice_per_class[c], global_step=self.global_step)
+        if sample is not None:
+            self.writer.add_image(
+                "validation", visualize.make_segmentation_image_summary(
+                    *sample), global_step=self.global_step)
 
         print("Validation: Dice Avg: {:.4f} ({:.3f} sec) {}".format(
             dice_avg, time.time() - start,
@@ -311,7 +378,7 @@ class SegmentationExperiment(BaseExperiment):
                                                   map_location=self.device)
         self.model.load_state_dict(restored["model"])
 
-        dice_per_class, dice_avg = self.eval(self.testing_data_loader)
+        dice_per_class, dice_avg, _ = self.eval(self.testing_data_loader)
         if if_log:
             with test_logger(os.path.join(self.ckpoint_dir,
                                           "test_log.txt")) as log:

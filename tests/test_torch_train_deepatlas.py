@@ -201,11 +201,13 @@ def test_resume_continues_at_the_next_epoch(trained_experiment):
 
 def test_unported_config_keys_and_missing_card_raise(corpus):
     config = tiny_config(corpus)
-    for key, value in (("data_parallel", True), ("spatial_shards", 2),
-                       ("augmentation", {"rigid": True}),
-                       ("image_summary", True)):
+    for key, value in (("data_parallel", True), ("spatial_shards", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DeepAtlasExperiment({**config, key: value})
+    # the augmenter and image summaries are ported: accepted
+    for key, value in (("augmentation", {"rigid": {}}),
+                       ("image_summary", True)):
+        DeepAtlasExperiment({**config, key: value})
     with pytest.raises(NotImplementedError, match="BatchNorm"):
         DeepAtlasExperiment({**config, "checkpoint_seg_apply": True})
     for device in (None, "cuda"):

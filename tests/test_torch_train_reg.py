@@ -210,10 +210,12 @@ def test_resume_continues_at_the_next_epoch(trained_experiment):
 
 def test_unported_config_keys_and_missing_card_raise(corpus):
     config = tiny_config(corpus)
-    for key, value in (("data_parallel", True), ("spatial_shards", 2),
-                       ("image_summary", True)):
+    for key, value in (("data_parallel", True), ("spatial_shards", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RegistrationExperiment({**config, key: value})
+    # image summaries are ported: accepted either way
+    for value in (True, False):
+        RegistrationExperiment({**config, "image_summary": value})
     for device in (None, "cuda"):
         with mock.patch.object(torch.cuda, "is_available",
                                return_value=False), \

@@ -210,11 +210,13 @@ def test_checkpoint_helpers(tmp_path):
 
 def test_unported_config_keys_and_missing_card_raise(tmp_path):
     config = tiny_config(tmp_path)
-    for key, value in (("data_parallel", True), ("spatial_shards", 2),
-                       ("augmentation", {"rigid": {}}),
-                       ("patch_size", [8, 8, 8])):
+    for key, value in (("data_parallel", True), ("spatial_shards", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SegmentationExperiment({**config, key: value})
+    # the patch samplers and the augmenter are ported: accepted
+    for key, value in (("augmentation", {"rigid": {}}),
+                       ("patch_size", [8, 8, 8])):
+        SegmentationExperiment({**config, key: value})
     for device in (None, "cuda"):
         with mock.patch.object(torch.cuda, "is_available",
                                return_value=False), \
