@@ -176,6 +176,27 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      sampler's host ms per crop by class, the augmenter's device ms by
      piece, one augmented batch against E's plain version, and the image
      summaries written.
+ 12. parallel -- the parallel tiers: 2 ranks spawned on the one card over
+     gloo (NCCL refuses two ranks on one GPU; correctness, not scaling),
+     one process group for every task, each task's launches counted per
+     rank against its single-process table: ``infer_seg_torch.main
+     --spatial-shards 2`` on a synthetic 160x384x384 OAI volume (its labels
+     equal to the single-process whole-volume forward's); 3 spatial seg
+     steps of the seg recipe (UNet_light, 32 classes, bf16, dice; SGD,
+     ``PAR_LR``) and one float32 step at 2 shards of 80x200x168
+     (``PAR_DEPTH``: the recipe's 168 does not split), one spatial
+     VoxelMorph step, each against the same step on one process: losses,
+     and the first step's gradients per tensor within the train phase's
+     limits or 3 times the single-process step's own change under a
+     rounding-sized change of its input (``COND_EPS``); the DP seg step at
+     batch 2 against its function computed replica by replica in one
+     process (equal bit for bit here); one DP joint seg and reg step (rank
+     0 hard, rank 1 f_hard with a substituted side; the replicas' states
+     equal); then ``train_seg_torch.py --data-parallel --debug`` over NCCL
+     at a world of one, started by ``torch.distributed.run``, on a
+     72x72x64 crop corpus (42 steps, falling losses).  The kernels phase
+     holds A and D at depth padding 0 at the shards' shapes (path
+     ``parallel``).
 
 The reg and joint phases also check their image summaries (every panel,
 or a named ``deform_grid`` line where matplotlib does not import; the
@@ -190,6 +211,7 @@ import functools
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -253,7 +275,7 @@ SOURCES_BY_DTYPE = {
 DETERMINISTIC = ("conv3d_k3_wgrad", "deconv2x", "conv3d_point",
                  "splat_trilinear")
 PATHS = ("serving", "training", "registration", "joint", "unet_serving",
-         "unet_training", "oai_patch_training")
+         "unet_training", "oai_patch_training", "parallel")
 # paths whose convolutions the kernels phase checks in bfloat16 only: the
 # type they run in (their float32 checks would repeat the training path's)
 BF16_ONLY_PATHS = ("oai_patch_training",)
@@ -644,10 +666,12 @@ def all_cases():
                             True, model="UNet"))
     cases.update(unet_cases("oai_patch_training", PATCH_BATCH, PATCH,
                             N_CLASSES, True))
+    cases.update(parallel_cases())
     return cases
 
 
-def wgrad_partial_bytes(dtype_name, batch, dhw, cin, cout, stride=1):
+def wgrad_partial_bytes(dtype_name, batch, dhw, cin, cout, stride=1,
+                        pad_d=1):
     """Bytes of the float32 partial sums ``(chunks, 27, Cin, Cout)`` that
     the weight-gradient kernel of this type allocates for one call."""
     from deepatlas_torch.kernels import build, conv3d
@@ -655,11 +679,45 @@ def wgrad_partial_bytes(dtype_name, batch, dhw, cin, cout, stride=1):
     if dtype_name == "bfloat16":
         lib = build.load("conv3d_mma", conv3d._MMA_SIGNATURES)
         chunks = lib.conv3d_k3_wgrad_mma_chunks(batch, *dhw, cin, cout,
-                                                stride)
+                                                   stride, pad_d)
     else:
         lib = build.load("conv3d_wgrad", conv3d._WGRAD_SIGNATURES)
-        chunks = lib.conv3d_k3_wgrad_chunks(batch, *dhw, cin, cout, stride)
+        chunks = lib.conv3d_k3_wgrad_chunks(batch, *dhw, cin, cout,
+                                               stride, pad_d)
     return chunks * 27 * cin * cout * 4
+
+
+def slab_check(name, role, got, args, kw):
+    """A depth-padding-0 launch against the full-volume conv (depth padding
+    1) on the same input: the forward is the padded conv's slab (its
+    planes 1..D-2 at stride 1; at stride 2 the conv of the input from
+    plane 1, whose output o reads the same planes 2o .. 2o + 2 for every o
+    but the first, which reads its zero padding: compared from o = 1), the
+    stride-1 input gradient is the padded conv's of the upstream gradient
+    with a zero plane on each side.  Both add the same products in the
+    same order, so float32 must be equal bit for bit.  None for the other
+    roles."""
+    import torch.nn.functional as F
+
+    from deepatlas_torch.kernels import conv3d_k3, conv3d_k3_input_grad
+    stride = kw.get("stride", 1)
+    if name == "conv3d_k3" and role in ("forward", "forward_s2"):
+        x, w, bias = args
+        if stride == 1:
+            full = conv3d_k3(x, w, bias)[:, 1:-1]
+        else:
+            full = conv3d_k3(x[:, 1:].contiguous(), w, bias,
+                             stride=2)[:, 1:got.shape[1]]
+            got = got[:, 1:]
+    elif role == "dx":
+        g, w = args
+        full = conv3d_k3_input_grad(F.pad(g, (0, 0, 0, 0, 0, 0, 1, 1)), w,
+                                    kw["dhw"], 1)
+    else:
+        return None
+    return {"equal": bool(got.shape == full.shape and
+                          bool((got == full).all())),
+            "max_abs_err": (got.float() - full.float()).abs().max().item()}
 
 
 def work(kernel, n, cin, cout, dtype_name, n_out=None, role=""):
@@ -720,30 +778,33 @@ def cuda_ms(fn, reps, warmup=1, queued=False):
     return start.elapsed_time(end) / reps
 
 
-def library_call(kernel, x, w, stride=1, dhw=None):
+def library_call(kernel, x, w, stride=1, dhw=None, pad_d=1):
     """One PyTorch (cuDNN) call computing the same function: the yardstick
     for ``library_ms`` only; the port never calls it.  For the weight
     gradient ``w`` is the upstream gradient; with ``dhw`` (the input's
     size) the k3 conv's call is its input gradient, ``x`` the upstream
-    gradient and ``w`` the conv's weights."""
+    gradient and ``w`` the conv's weights.  ``pad_d`` is the k3 conv's
+    depth padding (0: cuDNN with padding (0, 1, 1))."""
     import torch
     import torch.nn.functional as F
 
+    pad = (pad_d, 1, 1)
     xc = x.permute(0, 4, 1, 2, 3)           # NDHWC storage, NCDHW view
     if dhw is not None:
         wk = w.to(x.dtype).permute(4, 3, 0, 1, 2)
         size = (x.shape[0], w.shape[-2]) + tuple(dhw)
         return lambda: torch.nn.grad.conv3d_input(size, wk, xc,
-                                                  stride=stride, padding=1)
+                                                  stride=stride, padding=pad)
     if kernel == "conv3d_k3_wgrad":
         gc = w.permute(0, 4, 1, 2, 3)
         size = (w.shape[-1], x.shape[-1], 3, 3, 3)
         return lambda: torch.nn.grad.conv3d_weight(xc, size, gc,
-                                                   stride=stride, padding=1)
+                                                   stride=stride,
+                                                   padding=pad)
     wk = w.to(x.dtype)
     if kernel == "conv3d_k3":
         return lambda: F.conv3d(xc, wk.permute(4, 3, 0, 1, 2), stride=stride,
-                                padding=1)
+                                padding=pad)
     if kernel == "conv3d_point":
         return lambda: F.conv3d(xc, wk.permute(1, 0)[:, :, None, None, None])
     return lambda: F.conv_transpose3d(xc, wk.permute(3, 4, 0, 1, 2), stride=2)
@@ -781,7 +842,7 @@ def check_kernels(seed):
     from deepatlas_torch.kernels import (KERNELS, conv3d,
                                          conv3d_k3_input_grad,
                                          conv3d_k3_input_grad_plain, deconv3d)
-    from deepatlas_torch.kernels.conv3d import kernel_operands
+    from deepatlas_torch.kernels.conv3d import kernel_operands, strided_shape
 
     simt_of = {"deconv2x": deconv3d._deconv_simt,
                "conv3d_point": conv3d._point_simt}
@@ -795,25 +856,39 @@ def check_kernels(seed):
     for (path, name, role, batch, size, cin, cout), per_unit in \
             all_cases().items():
         fn, plain = KERNELS[name]
+        # depth padding 0 (the parallel path): the kernel's input is the
+        # shard with one halo plane on each side
+        p0 = role.endswith("_p0")
+        base = "forward" if role == "serve_p0" else \
+            role[:-3] if p0 else role
+        pad_d = 0 if p0 else 1
+        if p0:
+            size = (size[0] + 2,) + tuple(size[1:])
         n = batch * int(np.prod(size))
         big = n * max(cin, cout) > 2e8      # fewer repeats on the largest
-        stride = 2 if role.endswith("_s2") else 1
+        stride = 2 if base.endswith("_s2") else 1
         kw = {"stride": 2} if stride == 2 else {}
-        out_size = tuple(-(-v // stride) for v in size)
+        if p0:
+            kw["pad_d"] = 0
+        out_size = strided_shape(size, stride, pad_d)
         n_out = batch * int(np.prod(out_size))
         in_size = size
-        if role == "dx_s2":
-            # the strided conv's input gradient: the upstream gradient
-            # (cin channels at ceil(n / 2)) to the input (cout channels)
+        work_role = base
+        if base == "dx_s2" or (p0 and base.startswith("dx")):
+            # the conv's input gradient: the upstream gradient (cin
+            # channels at the output's size) to the input (cout channels);
+            # at depth padding 0 the input's halo planes too
             fn, plain = conv3d_k3_input_grad, conv3d_k3_input_grad_plain
-            kw = {"dhw": size, "stride": 2}
+            kw = {"dhw": size, "stride": stride, "pad_d": pad_d}
             in_size = out_size
-        for dtype in ((torch.bfloat16,) if path in BF16_ONLY_PATHS else
-                      (torch.float32, torch.bfloat16)):
+            work_role = "dx_s2"
+        dtypes = (torch.bfloat16,) if path in BF16_ONLY_PATHS \
+            or role == "serve_p0" else (torch.float32, torch.bfloat16)
+        for dtype in dtypes:
             dname = str(dtype).split(".")[1]
-            x = (torch.rand((batch,) + in_size + (cin,), generator=gen,
+            x = (torch.rand((batch,) + tuple(in_size) + (cin,), generator=gen,
                             device="cuda") * 2 - 1).to(dtype)
-            if role == "dx_s2":
+            if work_role == "dx_s2":
                 second = torch.randn((3, 3, 3, cout, cin), generator=gen,
                                      device="cuda") / np.sqrt(27 * cout)
                 args = timed_args = (x, second)
@@ -833,6 +908,7 @@ def check_kernels(seed):
                 args, timed_args = (x, second, bias), (x, second)
             got = fn(*args, **kw)
             ref = plain(*args, **kw)
+            slab = slab_check(name, base, got, args, kw) if p0 else None
             torch.cuda.synchronize()
             if got.shape != ref.shape or got.dtype != ref.dtype:
                 raise AssertionError(f"{name} {tuple(x.shape)}: kernel gives "
@@ -844,6 +920,9 @@ def check_kernels(seed):
             # in both types (bf16 products are exact in float32)
             tol = TOL["float32"] if name == "conv3d_k3_wgrad" else TOL[dname]
             ok = bool(np.isfinite(err)) and err <= tol * scale
+            if slab is not None and dname == "float32":
+                # the full-volume conv's slab, bit for bit in float32
+                ok = ok and slab["equal"]
             # no atomics (the weight gradient's fixed-order sums, the
             # channel mix's per-voxel sums): the same bits again
             repeatable = None
@@ -855,7 +934,8 @@ def check_kernels(seed):
             plain_ms = cuda_ms(lambda: plain(*timed_args, **kw),
                                reps=1 if big else 2, warmup=0 if big else 1)
             lib = library_call(name, x, second, stride,
-                               size if role == "dx_s2" else None)
+                               size if work_role == "dx_s2" else None,
+                               pad_d)
             lib_ms = cuda_ms(lib, reps=3 if big else 5)
             dev_ms = cuda_ms(lambda: fn(*timed_args, **kw),
                              reps=3 if big else 5, queued=True)
@@ -869,9 +949,10 @@ def check_kernels(seed):
                                          None)
                 simt_ms = cuda_ms(simt, reps=5)
                 simt_dev_ms = cuda_ms(simt, reps=5, queued=True)
-            bms, bound_by = bound_ms(name, n, cin, cout, dname, n_out, role)
+            bms, bound_by = bound_ms(name, n, cin, cout, dname, n_out,
+                                     work_role)
             partial_bytes = wgrad_partial_bytes(
-                dname, batch, size, cin, cout, stride) \
+                dname, batch, size, cin, cout, stride, pad_d) \
                 if name == "conv3d_k3_wgrad" else None
             log({"phase": "kernels", "path": path, "kernel": name,
                  "role": role, "dtype": dname, "x": list(x.shape),
@@ -884,16 +965,19 @@ def check_kernels(seed):
                  "kernel_device_ms": dev_ms, "library_device_ms": lib_dev_ms,
                  "cuda_core_ms": simt_ms, "cuda_core_device_ms": simt_dev_ms,
                  "bound_ms": bms, "bound_by": bound_by,
-                 "wgrad_partial_bytes": partial_bytes})
+                 "wgrad_partial_bytes": partial_bytes, "pad_d": pad_d,
+                 "full_volume_slab": slab})
             if not ok:
                 raise AssertionError(f"{name} {role} {dname} "
                                      f"{tuple(x.shape)} -> {cout}: max|k-p| "
                                      f"{err} (limit {tol} * {scale}), "
-                                     f"bit-identical rerun {repeatable}")
+                                     f"bit-identical rerun {repeatable}, "
+                                     f"full-volume slab {slab}")
             summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
                                                err)
             if dname == "bfloat16":       # the main paths' type, per unit
-                flops, nbytes = work(name, n, cin, cout, dname, n_out, role)
+                flops, nbytes = work(name, n, cin, cout, dname, n_out,
+                                     work_role)
                 for upath, times in unit_counts(path, role, per_unit):
                     tot = summary[name][upath]
                     for key, val in (("ms", ms), ("plain_ms", plain_ms),
@@ -3605,10 +3689,720 @@ def run_oai_patch_path(seed, workdir):
                              f" but {events} event files")
     return counts
 
+# ------------------------------------------------------------ parallel tiers
+
+# the parallel phase: PAR_RANKS processes on the one card over gloo (NCCL
+# refuses two ranks on one GPU), then the data-parallel CLI at a world of
+# one over NCCL through torchrun
+PAR_RANKS = 2
+# the spatial paths' depth: the recipes' 168 does not split into 2 shards
+# that UNet_light's 3 pools (a multiple of 8 a shard) and VoxelMorph's 4
+# strided convs (an even depth at every level: a multiple of 16 a shard)
+# divide; 160 (80 a shard) is the nearest depth both take.  The OAI volume's
+# 160 splits as it is.
+PAR_DEPTH = 160
+PAR_SHAPE = (PAR_DEPTH,) + TRAIN_SHAPE[1:]
+PAR_SHARD = (PAR_DEPTH // PAR_RANKS,) + TRAIN_SHAPE[1:]
+SERVE_SHARD = (OAI_SHAPE[0] // PAR_RANKS,) + OAI_SHAPE[1:]
+PAR_TRAIN_STEPS = 3
+# the parallel runs held against one process step with SGD in place of the
+# recipes' Adam: the parameters after the steps then compare the gradients
+# linearly, where Adam moves an entry whose gradient is rounding noise (the
+# BatchNorm scales' near-cancelling sums) by about lr either way
+PAR_LR = 1e-2
+# the seg recipe's criterion (train_seg_torch.py)
+SEG_LOSS_SETTINGS = {"weight_type": "Uniform", "no_bg": False,
+                     "softmax": True, "eps": 1e-6}
+# the joint recipe's weights (train_deepatlas_torch.py)
+JOINT_WEIGHTS = {"reg_weight": 1.0, "anatomy_weight": 3.0,
+                 "supervised_weight": 1.0}
+# the DP joint batch: rank 0 a fully labelled pair (the hard regime, the
+# matched-label warp), rank 1 a pair with an unlabelled moving side
+# (f_hard; its reg step substitutes the moving labels)
+PAR_JOINT_FLAGS = ((True, False), (True, True))
+# the kernels a parallel run launches (the spatial tier's convs on A and D
+# at depth padding 0, the shard-local B and C, E and F in the halo'd warp,
+# the DP joint steps' G, H and I)
+PAR_KERNELS = ("conv3d_k3", "conv3d_k3_wgrad", "deconv2x", "conv3d_point",
+               "warp_trilinear", "warp_grid_grad", "splat_trilinear",
+               "matched_warp", "matched_warp_fused")
+# the NCCL check's corpus: the recipe's crop leaves 72x72x64 of it (full
+# width, 32 classes, the recipe's 42 steps; the size keeps it a few seconds)
+NCCL_SHAPE = (86, 90, 78)
+
+
+def parallel_cases():
+    """Rank 0's launches of kernels A (``conv3d_k3``: roles ``forward_p0``,
+    ``dx_p0``, their ``_s2`` forms, and ``serve_p0``, a bfloat16 serving
+    forward) and D (``wgrad_p0``) at depth padding 0 in one unit of the
+    parallel path: a spatial UNet_light training step on an 80x200x168
+    shard (32 classes), a spatial VoxelMorph step on the same shard, and
+    the spatial serving forward of an 80x384x384 OAI shard.  The size is
+    the shard's, the kernel's input carries one more plane on each side.
+    B and C, shard-local, run at the shapes of the other paths."""
+    cases = {}
+
+    def p0(src, role_of):
+        for (_, kernel, role, batch, size, cin, cout), n in src.items():
+            if kernel in ("conv3d_k3", "conv3d_k3_wgrad") and role_of(role):
+                key = ("parallel", kernel, role_of(role), batch, size, cin,
+                       cout)
+                cases[key] = cases.get(key, 0) + n
+
+    p0(unet_cases("parallel", 1, PAR_SHARD, TRAIN_CLASSES, True),
+       lambda r: r + "_p0")
+    p0(voxelmorph_cases("parallel", 1, PAR_SHARD), lambda r: r + "_p0")
+    p0(unet_cases("parallel", 1, SERVE_SHARD, N_CLASSES, False),
+       lambda r: "serve_p0" if r == "forward" else None)
+    return cases
+
+
+def _par_data(shape, seed, n_classes=TRAIN_CLASSES, batch=1, scale=1.0):
+    """A seeded ``(batch, *shape, 1)`` image in [0, scale) and labels
+    that follow its intensity, on the host (each rank makes the whole batch
+    and keeps its block, as the loaders do)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.rand((batch,) + tuple(shape) + (1,), generator=gen)
+    labels = (img[..., 0] * n_classes).long().clamp(max=n_classes - 1)
+    return img * scale, labels
+
+
+def _par_seg_model(seed, n_classes=TRAIN_CLASSES, bf16=True):
+    import torch
+
+    from deepatlas_torch.models import get_network
+    model = get_network("UNet_light")(in_channel=1, n_classes=n_classes,
+                                      bias=True, BN=True,
+                                      dtype=torch.bfloat16 if bf16 else None)
+    model.load_state_dict(seeded_state(model, seed))
+    return model.cuda()
+
+
+def _par_reg_model(seed):
+    import torch
+
+    from deepatlas_torch.models import get_network
+    model = get_network("voxel_morph_cvpr")(dtype=torch.bfloat16,
+                                            max_disp=REG_MAX_DISP)
+    model.load_state_dict(seeded_state(model, seed + 1))
+    return model.cuda()
+
+
+def _par_optimizer(model):
+    import torch
+    return torch.optim.SGD(model.parameters(), lr=PAR_LR)
+
+
+def _grads_cpu(model):
+    """A float32 host copy of ``model``'s parameter gradients (the last
+    step's, which a step leaves in place)."""
+    return {k: p.grad.detach().float().cpu().clone()
+            for k, p in model.named_parameters()}
+
+
+def _state_cpu(model):
+    """A float32 host copy of ``model``'s state."""
+    return {k: v.detach().float().cpu().clone() for k, v in
+            model.state_dict().items()}
+
+
+def _par_serve(rank, workdir, seed):
+    import infer_seg_torch
+
+    argv = ["--ckpt", os.path.join(workdir, "ckpt", "model_best"),
+            "--data-root", workdir, "--list-file",
+            os.path.join(workdir, "test.txt"), "--data", "OAI",
+            "--n-classes", str(N_CLASSES), "--spatial-shards",
+            str(PAR_RANKS), "--dist-backend", "gloo", "--device", "cuda",
+            "--out-dir", os.path.join(workdir, "preds")]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        infer_seg_torch.main(argv)
+    return out.getvalue()
+
+
+def _par_spatial_train(rank, workdir, seed, bf16=True,
+                       steps=PAR_TRAIN_STEPS):
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.parallel import (make_mesh, make_spatial_seg_step,
+                                          replicate, shard_volume_batch)
+    from deepatlas_torch.train import TrainState
+    mesh = make_mesh(space=PAR_RANKS, device="cuda")
+    model = replicate(_par_seg_model(seed, bf16=bf16), mesh)
+    state = TrainState(model, _par_optimizer(model))
+    step = make_spatial_seg_step(model, get_loss_function("dice"),
+                                 TRAIN_CLASSES, mesh,
+                                 criterion_kwargs=SEG_LOSS_SETTINGS)
+    img, labels = _par_data(PAR_SHAPE, seed)
+    x, y = (t.cuda() for t in shard_volume_batch((img, labels), mesh))
+    losses, times, grads = [], [], None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss, _ = step(state, x, y)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        grads = grads or _grads_cpu(model)
+    return {"losses": losses, "step_s": times, "grads": grads,
+            "state": _state_cpu(model)}
+
+
+def _reg_pair(shape, seed):
+    """A moving image and the same image shifted by a voxel on each axis,
+    at the reg corpus's 0.3 intensity scale."""
+    import torch
+
+    img, _ = _par_data(shape, seed, scale=0.3)
+    return img, torch.roll(img, (1, 1, 1), dims=(1, 2, 3))
+
+
+def _par_spatial_reg(rank, workdir, seed):
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.parallel import (make_mesh, make_spatial_reg_step,
+                                          replicate, shard_volume_batch)
+    from deepatlas_torch.train import TrainState
+    mesh = make_mesh(space=PAR_RANKS, device="cuda")
+    model = replicate(_par_reg_model(seed), mesh)
+    state = TrainState(model, _par_optimizer(model))
+    step = make_spatial_reg_step(model, get_loss_function("lncc"),
+                                 get_loss_function("bendingEnergy"), 1.0,
+                                 mesh, sim_kwargs={"filter_size": 9})
+    moving, fixed = (t.cuda() for t in shard_volume_batch(
+        _reg_pair(PAR_SHAPE, seed), mesh))
+    t0 = time.perf_counter()
+    state, metrics = step(state, moving, fixed)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "step_s": time.perf_counter() - t0, "grads": _grads_cpu(model),
+            "state": _state_cpu(model)}
+
+
+def _par_dp_seg(rank, workdir, seed):
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.parallel import (make_dp_seg_train_step, make_mesh,
+                                          replicate, shard_batch)
+    from deepatlas_torch.train import TrainState
+    mesh = make_mesh(data=PAR_RANKS, device="cuda")
+    model = replicate(_par_seg_model(seed), mesh)
+    state = TrainState(model, _par_optimizer(model))
+    step = make_dp_seg_train_step(get_loss_function("dice")(
+        n_class=TRAIN_CLASSES, **SEG_LOSS_SETTINGS), mesh)
+    x, y = (t.cuda() for t in shard_batch(
+        _par_data(TRAIN_SHAPE, seed, batch=PAR_RANKS), mesh))
+    t0 = time.perf_counter()
+    state, loss, _ = step(state, x, y)
+    return {"loss": float(loss), "step_s": time.perf_counter() - t0,
+            "grads": _grads_cpu(model), "state": _state_cpu(model)}
+
+
+def _par_dp_joint(rank, workdir, seed):
+    import torch
+
+    from deepatlas_torch.kernels import grid_sample
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.parallel import (make_dp_joint_steps, make_mesh,
+                                          replicate, shard_batch)
+    from deepatlas_torch.train import TrainState, make_optimizer
+    from deepatlas_torch.train.deepatlas import ANATOMY_DTYPE
+    mesh = make_mesh(data=PAR_RANKS, device="cuda")
+    seg = replicate(_par_seg_model(seed), mesh)
+    reg = replicate(_par_reg_model(seed), mesh)
+    seg_state = TrainState(seg, make_optimizer(seg, 1e-3))
+    reg_state = TrainState(reg, make_optimizer(reg, 1e-3))
+    reg_step, seg_step = make_dp_joint_steps(
+        get_loss_function("lncc")(filter_size=9),
+        get_loss_function("bendingEnergy")(),
+        get_loss_function("dice")(n_class=TRAIN_CLASSES,
+                                  **SEG_LOSS_SETTINGS),
+        JOINT_WEIGHTS["reg_weight"], JOINT_WEIGHTS["anatomy_weight"],
+        JOINT_WEIGHTS["supervised_weight"], TRAIN_CLASSES, mesh,
+        warp_fn=functools.partial(grid_sample, max_disp=REG_MAX_DISP),
+        seg_warp_fn=functools.partial(grid_sample, max_disp=REG_MAX_DISP,
+                                      grad="values"),
+        anatomy_dtype=ANATOMY_DTYPE, max_disp=REG_MAX_DISP,
+        fused_anatomy=True, hard_fused=True)
+    moving, fixed = _reg_pair(TRAIN_SHAPE, seed)
+    moving, fixed = (torch.cat([t, t.flip(1)]) for t in (moving, fixed))
+    _, mseg = _par_data(TRAIN_SHAPE, seed + 2, batch=PAR_RANKS)
+    _, fseg = _par_data(TRAIN_SHAPE, seed + 3, batch=PAR_RANKS)
+    local = shard_batch((moving, fixed, mseg, fseg), mesh)
+    flags = shard_batch(tuple(torch.tensor(f) for f in PAR_JOINT_FLAGS),
+                        mesh)
+    args = [t.cuda() for t in local] + list(flags)
+    t0 = time.perf_counter()
+    seg_state, seg_metrics = seg_step(seg_state, reg_state, *args)
+    seg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reg_state, reg_metrics = reg_step(reg_state, seg_state, *args)
+    return {"seg_metrics": {k: float(v) for k, v in seg_metrics.items()},
+            "reg_metrics": {k: float(v) for k, v in reg_metrics.items()},
+            "seg_step_s": seg_s, "reg_step_s": time.perf_counter() - t0,
+            "seg_state": _state_cpu(seg), "reg_state": _state_cpu(reg)}
+
+
+PAR_TASKS = (("spatial_serving", _par_serve),
+             ("spatial_training", _par_spatial_train),
+             # one float32 step, where every parameter is held
+             ("spatial_training_f32",
+              functools.partial(_par_spatial_train, bf16=False, steps=1)),
+             ("spatial_registration", _par_spatial_reg),
+             ("dp_seg", _par_dp_seg), ("dp_joint", _par_dp_joint))
+
+
+def _parallel_rank(rank, workdir, seed):
+    """One rank of the parallel phase (spawned ``PAR_RANKS`` times): one
+    gloo process group on the card for every task, each task's launches
+    counted from 0 and read when it returns, results saved for the
+    parent."""
+    sys.path.insert(0, REPO)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(PAR_RANKS),
+                      LOCAL_RANK="0")
+    import torch
+    import torch.distributed as dist
+
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+    from deepatlas_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    make_mesh(space=PAR_RANKS, device="cuda", backend="gloo",
+              init_method="file://" + os.path.join(workdir, "pg"))
+    out = {}
+    for name, task in PAR_TASKS:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = task(rank, workdir, seed)
+        torch.cuda.synchronize()
+        out[name] = {"result": result, "launches": launch_counts(),
+                     "seconds": time.perf_counter() - t0}
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+# the relative change of the input that stands for one rounding at a type:
+# the spatial checks hold each gradient tensor to 3 times what this change
+# does to the single-process step's own gradients (its conditioning), or to
+# the train phase's limit where that is larger.  In bfloat16 the input is
+# rounded to bf16 first, so its change is half a bf16 step.
+COND_EPS = {"float32": 1e-7, "bfloat16": 2.0 ** -9}
+
+
+def _grad_agreement(got, ref, skip=()):
+    """Per tensor, ``got``'s gradient against ``ref``'s: the mean and the
+    largest |difference| over the entries, relative to the largest entry of
+    ``ref``'s."""
+    out = {}
+    for k, r in ref.items():
+        if k in skip:
+            continue
+        scale = float(r.abs().max())
+        if scale == 0.0:
+            continue
+        diff = (got[k] - r).abs()
+        out[k] = (float(diff.mean()) / scale, float(diff.max()) / scale)
+    return out
+
+
+def _worst(agree, n=6):
+    """The ``n`` tensors whose gradients agree least, by the mean."""
+    return sorted(([k, *v] for k, v in agree.items()),
+                  key=lambda r: -r[1])[:n]
+
+
+def _hold_grads(part, agree, cond, tol, at):
+    """Each tensor's reading ``at`` its mean or its worst entry held to the
+    larger of ``tol`` and 3 times its conditioning reading.  Returns the
+    worst ratio of reading to limit."""
+    i = 0 if at == "mean" else 1
+    worst, bad = 0.0, []
+    for k, v in agree.items():
+        limit = max(tol, 3.0 * cond.get(k, (0.0, 0.0))[i])
+        worst = max(worst, v[i] / limit)
+        if v[i] > limit:
+            bad.append((k, v[i], limit))
+    if bad:
+        raise AssertionError(f"{part}: gradients differ from the "
+                             f"single-process step's ({at} over a tensor, "
+                             f"relative to its largest entry) past their "
+                             f"limits: {bad[:6]}")
+    return worst
+
+
+def _noise_biases(names):
+    """A conv bias in front of a BatchNorm: the batch mean removes it, its
+    gradient is rounding noise only (as in the train phase)."""
+    return {k for k in names if k.endswith(".bias")
+            and k.rsplit(".", 1)[0] + ".bn.weight" in names}
+
+
+def _max_state_err(a, b):
+    return max(float((a[k] - b[k]).abs().max()) for k in b)
+
+
+def _single_dp_seg(seed):
+    """The data-parallel seg step's function in one process: each
+    replica's row forward and backward with its own BatchNorm moments and
+    class weights, the gradients, losses and new running statistics
+    averaged, one SGD update."""
+    import torch
+
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.models.layers import BatchNorm
+    model = _par_seg_model(seed)
+    opt = _par_optimizer(model)
+    crit = get_loss_function("dice")(n_class=TRAIN_CLASSES,
+                                     **SEG_LOSS_SETTINGS)
+    img, labels = _par_data(TRAIN_SHAPE, seed, batch=PAR_RANKS)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    start = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    new = [[torch.zeros_like(a), torch.zeros_like(b)] for a, b in start]
+    losses = []
+    opt.zero_grad(set_to_none=True)
+    for r in range(PAR_RANKS):
+        for m, (a, b) in zip(bns, start):
+            m.running_mean.copy_(a)
+            m.running_var.copy_(b)
+        logits = model(img[r:r + 1].cuda(), train=True)
+        loss = crit(logits.float(), labels[r:r + 1].cuda())
+        (loss / PAR_RANKS).backward()
+        losses.append(float(loss))
+        for m, acc in zip(bns, new):
+            acc[0] += m.running_mean / PAR_RANKS
+            acc[1] += m.running_var / PAR_RANKS
+    for m, (a, b) in zip(bns, new):
+        m.running_mean.copy_(a)
+        m.running_var.copy_(b)
+    opt.step()
+    return float(np.mean(losses)), _grads_cpu(model), _state_cpu(model)
+
+
+def _nccl_cli(workdir):
+    """The NCCL check's child, started by torchrun: the data-parallel seg
+    CLI at a world of one (``--debug``: a loss line every 2 steps), its
+    launch counts, losses and backend written for the parent."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    import train_seg_torch
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.chdir(workdir), contextlib.redirect_stdout(out):
+        dice = train_seg_torch.main(
+            ["--data-root", workdir, "--log-root", "logs", "--num-samples",
+             "21", "--num-epochs", "1", "--device", "cuda",
+             "--data-parallel", "--debug"])[1]
+    result = {"launches": launch_counts(), "test_dice_avg": float(dice),
+              "backend": dist.get_backend() if dist.is_initialized()
+              else None,
+              "world_size": dist.get_world_size() if dist.is_initialized()
+              else None,
+              "losses": [float(m) for m in re.findall(
+                  r"loss: ([0-9.naninf]+)", out.getvalue())]}
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
+        json.dump(result, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def run_parallel_path(seed, workdir):
+    """Phase ``parallel``: the parallel tiers at full width, 2 ranks on the
+    one card over gloo (correctness, not scaling: both ranks share the
+    H100), against the single-process runs on the card; then the
+    data-parallel CLI over NCCL at a world of one under torchrun.  Returns
+    the launches of both ranks' runs, summed."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    from deepatlas_torch.data import read_nifti
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.train import (TrainState, make_reg_train_step,
+                                       make_seg_train_step, save_checkpoint)
+
+    t0 = time.perf_counter()
+    names = write_corpus(workdir, seed, n_volumes=1)
+    serve_model = _par_seg_model(seed, N_CLASSES)
+    save_checkpoint({"epoch": 0, "best_score": 0.0,
+                     "model": _state_cpu(serve_model)}, True,
+                    os.path.join(workdir, "ckpt"))
+    del serve_model
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp.start_processes(_parallel_rank, args=(workdir, seed),
+                        nprocs=PAR_RANKS, start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(PAR_RANKS)]
+    launches = dict(NO_LAUNCHES)
+    for rank in ranks:
+        for task in rank.values():
+            for k, v in task["launches"].items():
+                launches[k] += v
+
+    # launches per task against the single-process step tables
+    seg_by_regime = {True: "hard", False: "f_hard"}
+    want = {
+        "spatial_serving": [EVAL_LAUNCHES] * PAR_RANKS,
+        "spatial_training": [{k: PAR_TRAIN_STEPS * v for k, v in
+                              STEP_LAUNCHES.items()}] * PAR_RANKS,
+        "spatial_training_f32": [STEP_LAUNCHES] * PAR_RANKS,
+        "spatial_registration": [REG_STEP_LAUNCHES] * PAR_RANKS,
+        "dp_seg": [STEP_LAUNCHES] * PAR_RANKS,
+        "dp_joint": [add_launches(
+            joint_seg_launches(seg_by_regime[PAR_JOINT_FLAGS[0][r]]),
+            joint_reg_launches(0 if PAR_JOINT_FLAGS[0][r] else 1))
+            for r in range(PAR_RANKS)]}
+    for task, tables in want.items():
+        for r, table in enumerate(tables):
+            got = ranks[r][task]["launches"]
+            if got != table:
+                raise AssertionError(f"parallel {task} rank {r}: launches "
+                                     f"{got} != {table}")
+
+    # spatial serving: rank 0's labels are the single-process forward's
+    lines = [json.loads(ln) for ln in
+             ranks[0]["spatial_serving"]["result"].splitlines()
+             if ln.startswith("{")]
+    if ranks[1]["spatial_serving"]["result"].strip():
+        raise AssertionError("rank 1 of the serving CLI printed")
+    if [ln.get("name") for ln in lines[:-1]] != names or \
+            not all(np.all(np.isfinite(ln.get("dice", ln.get(
+                "mean_dice_per_class", [np.nan])))) for ln in lines):
+        raise AssertionError(f"spatial serving lines {lines}")
+    model = _par_seg_model(seed, N_CLASSES).eval()
+    served = read_nifti(os.path.join(workdir, "preds",
+                                     f"{names[0]}_pred.nii.gz")).data
+    image = np.clip(read_nifti(os.path.join(
+        workdir, f"{names[0]}_image.nii.gz")).data, 0.0, 1.0)
+    with torch.no_grad():
+        # the loader's VolumeToArray clamps to [0, 1]
+        whole = torch.from_numpy(np.ascontiguousarray(
+            image, dtype=np.float32))[None, ..., None]
+        t1 = time.perf_counter()
+        ref = model(whole.cuda(), train=False).argmax(-1)[0]
+        torch.cuda.synchronize()
+        single_serve_s = time.perf_counter() - t1
+    ref = ref.to(torch.uint8).cpu().numpy()
+    serve_equal = bool(np.array_equal(np.asarray(served), ref))
+    differ = int((np.asarray(served) != ref).sum())
+    del model, whole
+    torch.cuda.empty_cache()
+    if not serve_equal:
+        raise AssertionError(f"spatial serving: {differ} labels differ from "
+                             f"the single-process forward")
+
+    # spatial training: the same steps on one process, the same seed; its
+    # conditioning: one more step on the input scaled by 1 + COND_EPS
+    def single_train(bf16, steps, scale=1.0):
+        model = _par_seg_model(seed, bf16=bf16)
+        state = TrainState(model, _par_optimizer(model))
+        step = make_seg_train_step(get_loss_function("dice")(
+            n_class=TRAIN_CLASSES, **SEG_LOSS_SETTINGS))
+        img, labels = _par_data(PAR_SHAPE, seed)
+        x, y = (img * scale).cuda(), labels.cuda()
+        losses, step_s, grads = [], [], None
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            state, loss, _ = step(state, x, y)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t1)
+            grads = grads or _grads_cpu(model)
+        out = _state_cpu(model)
+        del model, state, step, x, y
+        torch.cuda.empty_cache()
+        return grads, out, losses, step_s
+
+    train_check = {}
+    for task, bf16, steps in (("spatial_training", True, PAR_TRAIN_STEPS),
+                              ("spatial_training_f32", False, 1)):
+        dname = "bfloat16" if bf16 else "float32"
+        ref_grads, ref, single_losses, single_step_s = \
+            single_train(bf16, steps)
+        cond_grads, _, cond_losses, _ = single_train(
+            bf16, 1, 1.0 + COND_EPS[dname])
+        sp = [r[task]["result"] for r in ranks]
+        noise = _noise_biases(ref_grads)
+        agree = _grad_agreement(sp[0]["grads"], ref_grads, noise)
+        cond = _grad_agreement(cond_grads, ref_grads, noise)
+        # the train phase's rules: bfloat16 in the mean over a tensor,
+        # float32 at its worst entry
+        if bf16:
+            worst = _hold_grads(task, agree, cond,
+                                GRAD_TOL["bfloat16_mean"], "mean")
+        else:
+            worst = _hold_grads(task, agree, cond, GRAD_TOL["float32"],
+                                "max")
+        loss_err = max(abs(a - b) for a, b in zip(sp[0]["losses"],
+                                                  single_losses))
+        loss_cond = abs(cond_losses[0] - single_losses[0])
+        replicas_equal = all(torch.equal(sp[0]["state"][k],
+                                         sp[1]["state"][k]) for k in ref)
+        if not (loss_err <= max(STEP_METRIC_TOL, 3.0 * loss_cond)
+                and replicas_equal):
+            raise AssertionError(f"{task}: losses {sp[0]['losses']} vs "
+                                 f"{single_losses} (conditioning "
+                                 f"{loss_cond}), replicas equal "
+                                 f"{replicas_equal}")
+        train_check[task] = {
+            "shape": PAR_SHAPE, "shard": PAR_SHARD, "dtype": dname,
+            "losses": sp[0]["losses"], "single_losses": single_losses,
+            "max_loss_err": loss_err, "loss_conditioning": loss_cond,
+            "step_s": sp[0]["step_s"], "single_step_s": single_step_s,
+            "grad_err_over_limit_worst": worst,
+            "grad_err": _worst(agree), "grad_conditioning": _worst(cond),
+            "final_param_max_abs_err": _max_state_err(sp[0]["state"], ref)}
+
+    # spatial registration: one step on one process, and its conditioning
+    def single_reg(scale=1.0):
+        model = _par_reg_model(seed)
+        state = TrainState(model, _par_optimizer(model))
+        moving, fixed = (t.cuda() for t in _reg_pair(PAR_SHAPE, seed))
+        t1 = time.perf_counter()
+        state, metrics = make_reg_train_step(
+            get_loss_function("lncc")(filter_size=9),
+            get_loss_function("bendingEnergy")(), 1.0)(
+                state, moving * scale, fixed)
+        step_s = time.perf_counter() - t1
+        out = _grads_cpu(model), _state_cpu(model), \
+            {k: float(v) for k, v in metrics.items()}, step_s
+        del model, state, moving, fixed
+        torch.cuda.empty_cache()
+        return out
+
+    reg_grads, reg_ref, ref_metrics, single_reg_s = single_reg()
+    cond_reg_grads, _, cond_metrics, _ = single_reg(
+        1.0 + COND_EPS["bfloat16"])
+    rg = [r["spatial_registration"]["result"] for r in ranks]
+    reg_agree = _grad_agreement(rg[0]["grads"], reg_grads)
+    reg_cond = _grad_agreement(cond_reg_grads, reg_grads)
+    reg_worst = max(
+        _hold_grads("spatial registration", reg_agree, reg_cond,
+                    REG_GRAD_TOL["bfloat16_mean"], "mean"),
+        _hold_grads("spatial registration", reg_agree, reg_cond,
+                    REG_GRAD_TOL["bfloat16_max"], "max"))
+    reg_metric_err = max(abs(rg[0]["metrics"][k] - ref_metrics[k])
+                         for k in ("loss", "sim", "reg"))
+    reg_metric_cond = max(abs(cond_metrics[k] - ref_metrics[k])
+                          for k in ("loss", "sim", "reg"))
+    if not (reg_metric_err <= max(STEP_METRIC_TOL, 3.0 * reg_metric_cond)
+            and all(torch.equal(rg[0]["state"][k], rg[1]["state"][k])
+                    for k in reg_ref)):
+        raise AssertionError(f"spatial registration: metrics "
+                             f"{rg[0]['metrics']} vs {ref_metrics}")
+
+    # data-parallel seg step against its function in one process
+    dp_loss, dp_grads, dp_ref = _single_dp_seg(seed)
+    dp = [r["dp_seg"]["result"] for r in ranks]
+    dp_agree = _grad_agreement(dp[0]["grads"], dp_grads,
+                               _noise_biases(dp_grads))
+    dp_worst = _hold_grads("dp seg step", dp_agree, {},
+                           GRAD_TOL["bfloat16_mean"], "mean")
+    dp_stats_err = max(float((dp[0]["state"][k] - dp_ref[k]).abs().max())
+                       for k in dp_ref if k.endswith(("running_mean",
+                                                      "running_var")))
+    if not (abs(dp[0]["loss"] - dp_loss) <= STEP_METRIC_TOL
+            and dp_stats_err <= STEP_METRIC_TOL and all(
+                torch.equal(dp[0]["state"][k], dp[1]["state"][k])
+                for k in dp_ref)):
+        raise AssertionError(f"dp seg step: loss {dp[0]['loss']} vs "
+                             f"{dp_loss}, BatchNorm statistics "
+                             f"{dp_stats_err}")
+
+    # data-parallel joint steps: each rank its own regime, one update
+    jt = [r["dp_joint"]["result"] for r in ranks]
+    for part in ("seg_state", "reg_state"):
+        if not all(torch.equal(jt[0][part][k], jt[1][part][k])
+                   for k in jt[0][part]):
+            raise AssertionError(f"dp joint: the replicas' {part} differ")
+    for part in ("seg_metrics", "reg_metrics"):
+        if jt[0][part] != jt[1][part] or not all(
+                np.isfinite(v) for v in jt[0][part].values()):
+            raise AssertionError(f"dp joint {part}: {jt[0][part]} / "
+                                 f"{jt[1][part]}")
+    ranks_s_total = ranks_s
+
+    # NCCL: the data-parallel CLI at a world of one, started by torchrun
+    nccl_dir = os.path.join(workdir, "nccl")
+    os.makedirs(nccl_dir)
+    write_mindboggle_corpus(nccl_dir, seed, shape=NCCL_SHAPE)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", os.path.join(REPO, "chip_smoke.py"),
+         "--nccl-cli", nccl_dir], capture_output=True, text=True,
+        timeout=600)
+    nccl_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"the NCCL run failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(nccl_dir, "nccl.json")) as f:
+        nccl = json.load(f)
+    if nccl["backend"] != "nccl" or nccl["world_size"] != 1 or \
+            not np.isfinite(nccl["test_dice_avg"]) or not nccl["losses"] \
+            or not np.all(np.isfinite(nccl["losses"])):
+        raise AssertionError(f"the NCCL run: {nccl}")
+    nccl_want = {k: TRAIN_STEPS * STEP_LAUNCHES[k] for k in NO_LAUNCHES}
+    for k in ("conv3d_k3", "conv3d_k3_wgrad"):
+        if nccl["launches"][k] < nccl_want[k]:
+            raise AssertionError(f"the NCCL run launched {k} "
+                                 f"{nccl['launches'][k]} times, fewer than "
+                                 f"its {TRAIN_STEPS} steps take")
+    for k, v in nccl["launches"].items():
+        launches[k] += v
+
+    missing = [k for k in PAR_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the parallel paths never launched {missing}")
+    log({"phase": "parallel", "ranks": PAR_RANKS, "backend": "gloo",
+         "note": "2 ranks share the one H100 over gloo (halo planes staged "
+                 "through the host): correctness, not scaling",
+         "setup_s": setup_s, "ranks_s": ranks_s_total,
+         "task_seconds": {t: [r[t]["seconds"] for r in ranks]
+                          for t, _ in PAR_TASKS},
+         "launches_by_task": {t: [r[t]["launches"] for r in ranks]
+                              for t, _ in PAR_TASKS},
+         "spatial_serving": {"volume": OAI_SHAPE, "cli_lines": lines,
+                             "labels_equal_single_process": serve_equal,
+                             "single_process_forward_s": single_serve_s},
+         **train_check,
+         "spatial_registration": {"metrics": rg[0]["metrics"],
+                                  "single_metrics": ref_metrics,
+                                  "max_metric_err": reg_metric_err,
+                                  "metric_conditioning": reg_metric_cond,
+                                  "step_s": rg[0]["step_s"],
+                                  "single_step_s": single_reg_s,
+                                  "grad_err_over_limit_worst": reg_worst,
+                                  "grad_err": _worst(reg_agree),
+                                  "grad_conditioning": _worst(reg_cond),
+                                  "final_param_max_abs_err": _max_state_err(
+                                      rg[0]["state"], reg_ref)},
+         "dp_seg": {"loss": dp[0]["loss"], "single_loss": dp_loss,
+                    "step_s": [d["step_s"] for d in dp],
+                    "bn_stats_max_err": dp_stats_err,
+                    "grad_err_over_limit_worst": dp_worst,
+                    "grad_err": _worst(dp_agree),
+                    "final_param_max_abs_err": _max_state_err(
+                        dp[0]["state"], dp_ref)},
+         "dp_joint": {"flags": PAR_JOINT_FLAGS,
+                      "seg_metrics": jt[0]["seg_metrics"],
+                      "reg_metrics": jt[0]["reg_metrics"],
+                      "seg_step_s": [j["seg_step_s"] for j in jt],
+                      "reg_step_s": [j["reg_step_s"] for j in jt]},
+         "nccl": dict(nccl, seconds=nccl_s, shape=NCCL_SHAPE),
+         "launches": launches})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nccl-cli", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.nccl_cli:
+        # the parallel phase's NCCL child, started by torchrun
+        return _nccl_cli(args.nccl_cli)
 
     import torch
 
@@ -3660,7 +4454,8 @@ def main(argv=None):
                       ("joint", run_joint_path),
                       ("unet_serving", run_unet_serving_path),
                       ("unet_training", run_unet_train_path),
-                      ("oai_patch_training", run_oai_patch_path)):
+                      ("oai_patch_training", run_oai_patch_path),
+                      ("parallel", run_parallel_path)):
         with tempfile.TemporaryDirectory() as workdir:
             launches[path] = run(args.seed, workdir)
 
@@ -3744,7 +4539,14 @@ def main(argv=None):
                  "the smaller shapes. cuda_core_ms and cuda_core_device_ms "
                  "(deconv2x, conv3d_point) time the same bfloat16 calls on "
                  "the CUDA-core kernel of channel_mix.cuh, which they took "
-                 "before the tensor-core kernel"})
+                 "before the tensor-core kernel. 'parallel' holds kernels A "
+                 "and D at depth padding 0 (the spatial tier's shards, "
+                 "one halo plane on each side) over one unit: a spatial "
+                 "UNet_light training step and a spatial VoxelMorph step on "
+                 "rank 0's 80x200x168 shard and the spatial serving forward "
+                 "of an 80x384x384 OAI shard (bfloat16), library_ms cuDNN "
+                 "with depth padding 0; its launches are both ranks' of the "
+                 "parallel phase's gloo runs and the NCCL CLI's"})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -52,6 +52,18 @@ zero-stuffed gradient; in bfloat16 on the card it is one launch over the 8
 parity classes of the input voxels (``parity_tap_table``), which reads the
 gradient as it is and does 1/8 of that work.
 
+Depth padding: ``conv3d_k3``, ``conv3d_k3_input_grad`` and
+``conv3d_k3_wgrad`` take ``pad_d``, 1 (the conv above) or 0, the conv of a
+depth shard whose input carries one neighbour plane on each side (the
+output of ``ops.halo.halo_exchange_d``): H and W stay padded by 1, output
+plane ``o`` reads input planes ``s o .. s o + 2``, the output has ``D - 2``
+planes at stride 1 and ``(D - 3) // 2 + 1`` at stride 2, ``dx`` covers every
+input plane (the halo's too, whose gradients the exchange's adjoint sends
+back) and ``dW`` sums over the halo'd input.  The kernels take the padding
+as the depth origin of their halo gather, so no plane is computed to be
+thrown away; the stride-1 ``dx`` of a ``pad_d = 0`` conv is the forward
+kernel at depth padding 2.
+
 Types: x float32 or bfloat16; weights are rounded to x's type (as the JAX
 modules cast their float32 parameters to the compute type; the tensor-core
 kernels read them packed by ``pack_k3_weights``), products accumulate in
@@ -73,23 +85,26 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "conv3d_k3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "conv3d_k3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "conv3d_point": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 _BLOCK_SIGNATURES = {
     "conv3d_k3_block": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+# the k3 entry points take the depth padding (``pad_d``) after the stride
 _WGRAD_SIGNATURES = {
-    "conv3d_k3_wgrad_chunks": [_I, _I, _I, _I, _I, _I, _I],
-    "conv3d_k3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "conv3d_k3_wgrad_chunks": [_I, _I, _I, _I, _I, _I, _I, _I],
+    "conv3d_k3_wgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
 }
 _MMA_SIGNATURES = {
-    "conv3d_k3_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "conv3d_k3_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "conv3d_k3_block_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "conv3d_k3_dx_s2_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            ctypes.POINTER(ctypes.c_int), _P],
-    "conv3d_k3_wgrad_mma_chunks": [_I, _I, _I, _I, _I, _I, _I],
-    "conv3d_k3_wgrad_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                            ctypes.POINTER(ctypes.c_int), _I, _P],
+    "conv3d_k3_wgrad_mma_chunks": [_I, _I, _I, _I, _I, _I, _I, _I],
+    "conv3d_k3_wgrad_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
 }
 # csrc/channel_mix_mma.cu, shared with kernels/deconv3d.py
 _MIX_SIGNATURES = {
@@ -145,23 +160,37 @@ def upstream(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return g.to(x.dtype).contiguous()
 
 
-def strided_shape(dhw, stride: int) -> tuple:
-    """Output sizes of a k3 p1 conv of ``stride``: ``ceil(n / stride)``."""
-    return tuple(-(-int(n) // stride) for n in dhw)
+def strided_shape(dhw, stride: int, pad_d: int = 1) -> tuple:
+    """Output sizes of a k3 conv of ``stride``, padded by 1 on H and W
+    (``ceil(n / stride)``) and by ``pad_d`` on D (``(D + 2 pad_d - 3) //
+    stride + 1``)."""
+    d, h, w = (int(n) for n in dhw)
+    return ((d + 2 * pad_d - 3) // stride + 1, -(-h // stride),
+            -(-w // stride))
 
 
-def _check_stride(stride: int, what: str) -> None:
+def _check_stride(stride: int, what: str, pad_d: int = 1,
+                  d: Optional[int] = None) -> None:
     if stride not in (1, 2):
         raise ValueError(f"{what}: stride must be 1 or 2, got {stride}")
+    if pad_d not in (0, 1):
+        raise ValueError(f"{what}: pad_d must be 0 or 1, got {pad_d!r}")
+    if d is not None and d + 2 * pad_d < 3:
+        raise ValueError(f"{what}: depth {d} at pad_d {pad_d} has no output "
+                         f"plane")
 
 
-def zero_stuffed(g: torch.Tensor, dhw, stride: int) -> torch.Tensor:
-    """``g`` at every ``stride``-th voxel of a zero ``(B, *dhw, C)`` tensor:
-    the upstream gradient of a strided conv as its stride-1 twin sees it."""
-    if stride == 1:
+def zero_stuffed(g: torch.Tensor, dhw, stride: int,
+                 pad_d: int = 1) -> torch.Tensor:
+    """``g`` where its outputs' centre taps sit in a zero ``(B, *dhw, C)``
+    tensor: the upstream gradient of a conv as its stride-1 pad-1 twin sees
+    it (every ``stride``-th voxel; from plane 1 in depth at ``pad_d = 0``,
+    whose output ``o`` is centred on input ``s o + 1``)."""
+    if stride == 1 and pad_d == 1:
         return g
     full = g.new_zeros((g.shape[0], *dhw, g.shape[-1]))
-    full[:, ::stride, ::stride, ::stride] = g
+    z0 = 1 - pad_d
+    full[:, z0::stride, ::stride, ::stride][:, :g.shape[1]] = g
     return full
 
 
@@ -172,12 +201,14 @@ def bias_grad(g: torch.Tensor) -> torch.Tensor:
 
 # -------------------------------------------------------------- k3 conv
 
-def _k3_math(x, wk, bk, stride=1):
-    """Conv3d k3 p1 as 27 shifted channel contractions (no cuDNN), on
-    weights already rounded by ``kernel_operands``; a strided conv is the
-    stride-1 result at the even voxels."""
+def _k3_math(x, wk, bk, stride=1, pad_d=1):
+    """Conv3d k3 as 27 shifted channel contractions (no cuDNN), on weights
+    already rounded by ``kernel_operands``, padded by 1 on H and W and by
+    ``pad_d`` on D; a strided conv is the stride-1 result at the even
+    voxels."""
     b, d, h, wd, _ = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, pad_d, pad_d))
+    d = d + 2 * pad_d - 2
     out = torch.zeros(b, d, h, wd, wk.shape[-1], dtype=torch.float32,
                       device=x.device)
     for kz in range(3):
@@ -234,58 +265,59 @@ def pack_mix_weights(wk: torch.Tensor) -> torch.Tensor:
     return packed.view(kp, -1)
 
 
-def _k3_simt(x, wk, bk, stride=1):
+def _k3_simt(x, wk, bk, stride=1, pad_d=1):
     """Kernel A on the CUDA cores (``csrc/conv3d.cu``), float32 weights;
-    takes either type (the float32 path's kernel)."""
+    takes either type (the float32 path's kernel).  ``pad_d`` 2 (stride 1)
+    is the input gradient of a ``pad_d = 0`` conv."""
     b, d, h, wd, cin = x.shape
     cout = wk.shape[-1]
-    y = torch.empty(b, *strided_shape((d, h, wd), stride), cout,
+    y = torch.empty(b, *strided_shape((d, h, wd), stride, pad_d), cout,
                     dtype=x.dtype, device=x.device)
     lib = build.load("conv3d", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.conv3d_k3(_DTYPES[x.dtype], x.data_ptr(), wk.data_ptr(),
-                           _ptr(bk), y.data_ptr(), b, d, h, wd, cin, cout,
-                           stride, stream)
+                              _ptr(bk), y.data_ptr(), b, d, h, wd, cin, cout,
+                              stride, pad_d, stream)
     build.check(rc, "conv3d_k3")
     return y
 
 
-def _k3_mma(x, wk, bk, stride=1):
+def _k3_mma(x, wk, bk, stride=1, pad_d=1):
     """Kernel A on the tensor cores (``csrc/conv3d_mma.cu``), bfloat16."""
     b, d, h, wd, cin = x.shape
     cout = wk.shape[-1]
     wpk = pack_k3_weights(wk)
-    y = torch.empty(b, *strided_shape((d, h, wd), stride), cout,
+    y = torch.empty(b, *strided_shape((d, h, wd), stride, pad_d), cout,
                     dtype=x.dtype, device=x.device)
     lib = build.load("conv3d_mma", _MMA_SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.conv3d_k3_mma(x.data_ptr(), wpk.data_ptr(), _ptr(bk),
-                               y.data_ptr(), b, d, h, wd, cin, cout, stride,
-                               stream)
+                                  y.data_ptr(), b, d, h, wd, cin, cout,
+                                  stride, pad_d, stream)
     build.check(rc, "conv3d_k3")
     return y
 
 
-def _k3_cuda(x, wk, bk, stride=1):
+def _k3_cuda(x, wk, bk, stride=1, pad_d=1):
     y = (_k3_mma if x.dtype == torch.bfloat16 else _k3_simt)(x, wk, bk,
-                                                               stride)
+                                                               stride, pad_d)
     conv3d_k3.launches += 1
     return y
 
 
-def _k3_op(x, wk, bk, stride=1):
-    return _k3_math(x, wk, bk, stride) if x.device.type == "cpu" \
-        else _k3_cuda(x, wk, bk, stride)
+def _k3_op(x, wk, bk, stride=1, pad_d=1):
+    return _k3_math(x, wk, bk, stride, pad_d) if x.device.type == "cpu" \
+        else _k3_cuda(x, wk, bk, stride, pad_d)
 
 
 def conv3d_k3_plain(x: torch.Tensor, w: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
-                    stride: int = 1) -> torch.Tensor:
+                    stride: int = 1, pad_d: int = 1) -> torch.Tensor:
     """The plain PyTorch version of ``conv3d_k3`` (forward only)."""
-    _check_stride(stride, "conv3d_k3")
-    return _k3_math(x, *kernel_operands(x, w, bias), stride)
+    _check_stride(stride, "conv3d_k3", pad_d, x.shape[1])
+    return _k3_math(x, *kernel_operands(x, w, bias), stride, pad_d)
 
 
 def adjoint_k3_weights(wk: torch.Tensor) -> torch.Tensor:
@@ -294,7 +326,7 @@ def adjoint_k3_weights(wk: torch.Tensor) -> torch.Tensor:
     return wk.flip(0, 1, 2).transpose(3, 4).contiguous()
 
 
-def parity_tap_table() -> tuple:
+def parity_tap_table(pad_d: int = 1) -> tuple:
     """The taps of the stride-2 k3 conv's input gradient by parity class.
 
     Input ``i`` meets output ``o`` through tap ``k`` where ``i = 2o + k - 1``:
@@ -303,34 +335,38 @@ def parity_tap_table() -> tuple:
     ``pz*4 + py*2 + px`` holds the input voxels of those parities; its
     entry lists its taps ``kz*9 + ky*3 + kx`` (1, 2, 4 or 8 of them, 27 in
     all).  Tap ``k`` of parity ``p`` reads the gradient at ``q + (p + 1 -
-    k) // 2`` for input ``2q + p``."""
+    k) // 2`` for input ``2q + p``.  At depth padding ``pad_d = 0`` depth
+    has ``i = 2o + k``: the depth parities trade their taps (an even ``i``
+    through taps 0 and 2, an odd one through tap 1), and tap ``kz`` of
+    parity ``pz`` reads the gradient at ``q + (pz - kz) // 2``."""
     per_parity = ((1,), (0, 2))
+    per_parity_z = per_parity if pad_d == 1 else per_parity[::-1]
     return tuple(
-        tuple(9 * kz + 3 * ky + kx for kz in per_parity[cls >> 2]
+        tuple(9 * kz + 3 * ky + kx for kz in per_parity_z[cls >> 2]
               for ky in per_parity[(cls >> 1) & 1]
               for kx in per_parity[cls & 1])
         for cls in range(8))
 
 
-def _tap_table_arg():
+def _tap_table_arg(pad_d: int = 1):
     """``parity_tap_table`` as the C entry point takes it: 8 tap counts,
     then 8 x 8 taps (zero past each count)."""
-    table = parity_tap_table()
+    table = parity_tap_table(pad_d)
     flat = [len(t) for t in table]
     for taps in table:
         flat += list(taps) + [0] * (8 - len(taps))
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def _dx_math(g, wt, dhw, stride):
-    """The plain input gradient: the stride-1 conv, with the adjoint weights
-    ``wt`` (``adjoint_k3_weights``), of the upstream gradient ``g`` put at
-    every ``stride``-th voxel of a zero tensor of the input's size
-    ``dhw``."""
-    return _k3_math(zero_stuffed(g, dhw, stride), wt, None)
+def _dx_math(g, wt, dhw, stride, pad_d=1):
+    """The plain input gradient: the stride-1 pad-1 conv, with the adjoint
+    weights ``wt`` (``adjoint_k3_weights``), of the upstream gradient ``g``
+    put where its outputs' centre taps sit in a zero tensor of the input's
+    size ``dhw`` (``zero_stuffed``)."""
+    return _k3_math(zero_stuffed(g, dhw, stride, pad_d), wt, None)
 
 
-def _dx_s2_mma(g, wt, dhw):
+def _dx_s2_mma(g, wt, dhw, pad_d=1):
     """The stride-2 input gradient on the tensor cores, by parity class."""
     b, cg = g.shape[0], g.shape[-1]
     cx = wt.shape[-1]
@@ -339,33 +375,39 @@ def _dx_s2_mma(g, wt, dhw):
     lib = build.load("conv3d_mma", _MMA_SIGNATURES)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.conv3d_k3_dx_s2_mma(g.data_ptr(), wpk.data_ptr(),
-                                     dx.data_ptr(), b, *(int(n) for n in dhw),
-                                     cg, cx, _tap_table_arg(), stream)
+        rc = lib.conv3d_k3_dx_s2_mma(
+            g.data_ptr(), wpk.data_ptr(), dx.data_ptr(), b,
+            *(int(n) for n in dhw), cg, cx, _tap_table_arg(pad_d), pad_d,
+            stream)
     build.check(rc, "conv3d_k3 (stride-2 input gradient)")
     conv3d_k3.launches += 1
     return dx
 
 
-def _dx_cuda(g, wt, dhw, stride):
+def _dx_cuda(g, wt, dhw, stride, pad_d=1):
     if stride == 2 and g.dtype == torch.bfloat16:
-        return _dx_s2_mma(g, wt, tuple(dhw))
-    return _k3_cuda(zero_stuffed(g, dhw, stride), wt, None)
+        return _dx_s2_mma(g, wt, tuple(dhw), pad_d)
+    if stride == 1 and pad_d == 0:
+        # output o of the pad-0 conv meets inputs o .. o + 2: the adjoint is
+        # the forward kernel at depth padding 2 on g as it is
+        return _k3_cuda(g, wt, None, 1, 2)
+    return _k3_cuda(zero_stuffed(g, dhw, stride, pad_d), wt, None)
 
 
-def _dx_op(g, wt, dhw, stride):
-    return _dx_math(g, wt, dhw, stride) if g.device.type == "cpu" \
-        else _dx_cuda(g, wt, dhw, stride)
+def _dx_op(g, wt, dhw, stride, pad_d=1):
+    return _dx_math(g, wt, dhw, stride, pad_d) if g.device.type == "cpu" \
+        else _dx_cuda(g, wt, dhw, stride, pad_d)
 
 
 class _ConvK3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bias, stride):
+    def forward(ctx, x, w, bias, stride, pad_d):
         wk, bk = kernel_operands(x, w, bias)
         ctx.save_for_backward(x, wk)
         ctx.has_bias = bias is not None
         ctx.stride = stride
-        return _k3_op(x, wk, bk, stride)
+        ctx.pad_d = pad_d
+        return _k3_op(x, wk, bk, stride, pad_d)
 
     @staticmethod
     def backward(ctx, g):
@@ -373,19 +415,20 @@ class _ConvK3(torch.autograd.Function):
         g = upstream(g, x)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _dx_op(g, adjoint_k3_weights(wk), x.shape[1:4], ctx.stride)
+            dx = _dx_op(g, adjoint_k3_weights(wk), x.shape[1:4], ctx.stride,
+                        ctx.pad_d)
         if ctx.needs_input_grad[1]:
-            dw = conv3d_k3_wgrad(x, g, ctx.stride)
+            dw = conv3d_k3_wgrad(x, g, ctx.stride, ctx.pad_d)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = bias_grad(g)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def conv3d_k3(x: torch.Tensor, w: torch.Tensor,
               bias: Optional[torch.Tensor] = None,
-              stride: int = 1) -> torch.Tensor:
-    """Conv3d kernel 3, stride 1 or 2, zero padding 1; differentiable in x,
-    w and bias.
+              stride: int = 1, pad_d: int = 1) -> torch.Tensor:
+    """Conv3d kernel 3, stride 1 or 2, zero padding 1 on H and W and
+    ``pad_d`` on D; differentiable in x, w and bias.
 
     Args:
       x: ``(B, D, H, W, Cin)`` float32 or bfloat16, contiguous.
@@ -393,24 +436,30 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor,
       bias: optional ``(Cout,)``, added in float32 before the output is
         rounded.
       stride: 1, or 2 for ``ceil(n / 2)`` outputs per axis.
+      pad_d: 1, or 0 for a depth shard carrying a one-plane halo on each
+        side (``D - 2`` output planes at stride 1, ``(D - 3) // 2 + 1`` at
+        stride 2).
 
     Returns ``(B, D', H', W', Cout)`` in x's type.
     """
     check_operands(x, w, bias, (3, 3, 3), "conv3d_k3")
-    _check_stride(stride, "conv3d_k3")
-    return _ConvK3.apply(x, w, bias, stride)
+    _check_stride(stride, "conv3d_k3", pad_d, x.shape[1])
+    return _ConvK3.apply(x, w, bias, stride, pad_d)
 
 
 conv3d_k3.launches = 0
 
 
-def _check_input_grad_operands(g, w, dhw, stride):
+def _check_input_grad_operands(g, w, dhw, stride, pad_d=1):
     what = "conv3d_k3_input_grad"
-    _check_stride(stride, what)
+    _check_stride(stride, what, pad_d, int(dhw[0]) if len(dhw) else None)
     if len(dhw) != 3 or g.dim() != 5 \
-            or tuple(g.shape[1:4]) != strided_shape(dhw, stride):
-        raise ValueError(f"{what}: g must be (B, ceil(n / stride) per axis of "
-                         f"{tuple(dhw)}, Cout), got {tuple(g.shape)}")
+            or tuple(g.shape[1:4]) != strided_shape(dhw, stride, pad_d):
+        raise ValueError(f"{what}: g must be (B, ceil(n / stride) per axis "
+                         f"of {tuple(dhw)} (depth (D + 2 pad_d - 3) // "
+                         f"stride + 1 at pad_d {pad_d}): "
+                         f"{strided_shape(dhw, stride, pad_d)}, Cout), got "
+                         f"{tuple(g.shape)}")
     if g.dtype not in _DTYPES:
         raise TypeError(f"{what}: g must be float32 or bfloat16, got "
                         f"{g.dtype}")
@@ -427,7 +476,7 @@ def _check_input_grad_operands(g, w, dhw, stride):
 
 
 def conv3d_k3_input_grad(g: torch.Tensor, w: torch.Tensor, dhw,
-                         stride: int = 1) -> torch.Tensor:
+                         stride: int = 1, pad_d: int = 1) -> torch.Tensor:
     """The input gradient of ``conv3d_k3(x, w, stride=stride)`` for an
     input of spatial size ``dhw``, as its backward computes it (one launch
     of kernel A on the card).
@@ -438,23 +487,25 @@ def conv3d_k3_input_grad(g: torch.Tensor, w: torch.Tensor, dhw,
       w: the conv's weights ``(3, 3, 3, Cin, Cout)``, rounded to g's type.
       dhw: the input's ``(D, H, W)``.
       stride: the conv's stride, 1 or 2.
+      pad_d: the conv's depth padding, 1 or 0.
 
     Returns ``(B, D, H, W, Cin)`` in g's type.
     """
-    _check_input_grad_operands(g, w, dhw, stride)
+    _check_input_grad_operands(g, w, dhw, stride, pad_d)
     wk, _ = kernel_operands(g, w, None)
     return _dx_op(g, adjoint_k3_weights(wk), tuple(int(n) for n in dhw),
-                  stride)
+                  stride, pad_d)
 
 
 def conv3d_k3_input_grad_plain(g: torch.Tensor, w: torch.Tensor, dhw,
-                               stride: int = 1) -> torch.Tensor:
+                               stride: int = 1,
+                               pad_d: int = 1) -> torch.Tensor:
     """The plain PyTorch version of ``conv3d_k3_input_grad``: the stride-1
     conv of the zero-stuffed gradient with the adjoint weights."""
-    _check_input_grad_operands(g, w, dhw, stride)
+    _check_input_grad_operands(g, w, dhw, stride, pad_d)
     wk, _ = kernel_operands(g, w, None)
     return _dx_math(g, adjoint_k3_weights(wk), tuple(int(n) for n in dhw),
-                    stride)
+                    stride, pad_d)
 
 
 # ----------------------------------------- k3 conv, p_blk planes per step
@@ -551,9 +602,11 @@ conv3d_k3_block.launches = 0
 
 # ------------------------------------------------- k3 weight gradient
 
-def _wgrad_math(x, g, stride=1):
+def _wgrad_math(x, g, stride=1, pad_d=1):
     b, d, h, wd, cin = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, pad_d, pad_d))
+    # the stride-1 frame: output j of the stride-1 conv reads xp[j .. j + 2]
+    d = d + 2 * pad_d - 2
     gf = zero_stuffed(g, (d, h, wd), stride).float()
     dw = torch.empty(3, 3, 3, cin, g.shape[-1], dtype=torch.float32,
                      device=x.device)
@@ -566,13 +619,14 @@ def _wgrad_math(x, g, stride=1):
     return dw
 
 
-def _wgrad_simt(x, g, stride=1):
+def _wgrad_simt(x, g, stride=1, pad_d=1):
     """Kernel D on the CUDA cores (``csrc/conv3d_wgrad.cu``); takes either
     type (the float32 path's kernel)."""
     b, d, h, wd, cin = x.shape
     cout = g.shape[-1]
     lib = build.load("conv3d_wgrad", _WGRAD_SIGNATURES)
-    chunks = lib.conv3d_k3_wgrad_chunks(b, d, h, wd, cin, cout, stride)
+    chunks = lib.conv3d_k3_wgrad_chunks(b, d, h, wd, cin, cout, stride,
+                                           pad_d)
     partial = torch.empty(chunks, 27, cin, cout, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty(3, 3, 3, cin, cout, dtype=torch.float32,
@@ -580,19 +634,20 @@ def _wgrad_simt(x, g, stride=1):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.conv3d_k3_wgrad(_DTYPES[x.dtype], x.data_ptr(),
-                                 g.data_ptr(), partial.data_ptr(),
-                                 dw.data_ptr(), b, d, h, wd, cin, cout,
-                                 stride, stream)
+                                    g.data_ptr(), partial.data_ptr(),
+                                    dw.data_ptr(), b, d, h, wd, cin, cout,
+                                    stride, pad_d, stream)
     build.check(rc, "conv3d_k3_wgrad")
     return dw
 
 
-def _wgrad_mma(x, g, stride=1):
+def _wgrad_mma(x, g, stride=1, pad_d=1):
     """Kernel D on the tensor cores (``csrc/conv3d_mma.cu``), bfloat16."""
     b, d, h, wd, cin = x.shape
     cout = g.shape[-1]
     lib = build.load("conv3d_mma", _MMA_SIGNATURES)
-    chunks = lib.conv3d_k3_wgrad_mma_chunks(b, d, h, wd, cin, cout, stride)
+    chunks = lib.conv3d_k3_wgrad_mma_chunks(b, d, h, wd, cin, cout, stride,
+                                               pad_d)
     partial = torch.empty(chunks, 27, cin, cout, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty(3, 3, 3, cin, cout, dtype=torch.float32,
@@ -600,28 +655,32 @@ def _wgrad_mma(x, g, stride=1):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.conv3d_k3_wgrad_mma(x.data_ptr(), g.data_ptr(),
-                                     partial.data_ptr(), dw.data_ptr(), b, d,
-                                     h, wd, cin, cout, stride, stream)
+                                        partial.data_ptr(), dw.data_ptr(), b,
+                                        d, h, wd, cin, cout, stride, pad_d,
+                                        stream)
     build.check(rc, "conv3d_k3_wgrad")
     return dw
 
 
-def _wgrad_cuda(x, g, stride=1):
-    dw = (_wgrad_mma if x.dtype == torch.bfloat16 else _wgrad_simt)(x, g,
-                                                                    stride)
+def _wgrad_cuda(x, g, stride=1, pad_d=1):
+    dw = (_wgrad_mma if x.dtype == torch.bfloat16 else _wgrad_simt)(
+        x, g, stride, pad_d)
     conv3d_k3_wgrad.launches += 1
     return dw
 
 
 def _check_wgrad_operands(x: torch.Tensor, g: torch.Tensor,
-                          stride: int = 1) -> None:
+                          stride: int = 1, pad_d: int = 1) -> None:
     what = "conv3d_k3_wgrad"
-    _check_stride(stride, what)
+    _check_stride(stride, what, pad_d,
+                  int(x.shape[1]) if x.dim() == 5 else None)
     if x.dim() != 5 or g.dim() != 5 or g.shape[0] != x.shape[0] \
-            or tuple(g.shape[1:4]) != strided_shape(x.shape[1:4], stride):
+            or tuple(g.shape[1:4]) != strided_shape(x.shape[1:4], stride,
+                                                    pad_d):
         raise ValueError(f"{what}: x (B, D, H, W, Cin) and g (B, D, H, W, "
                          f"Cout) must share their voxels (ceil(n / stride) "
-                         f"of them at stride {stride}), got "
+                         f"of them at stride {stride}; depth (D + 2 pad_d - "
+                         f"3) // stride + 1 at depth padding {pad_d}), got "
                          f"{tuple(x.shape)} and {tuple(g.shape)}")
     if x.dtype not in _DTYPES or g.dtype != x.dtype:
         raise TypeError(f"{what}: x and g must share float32 or bfloat16, "
@@ -635,22 +694,24 @@ def _check_wgrad_operands(x: torch.Tensor, g: torch.Tensor,
 
 
 def conv3d_k3_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
-                          stride: int = 1) -> torch.Tensor:
+                          stride: int = 1, pad_d: int = 1) -> torch.Tensor:
     """The plain PyTorch version of ``conv3d_k3_wgrad``: 27 shifted
     contractions over the voxels of the zero-padded x, in float32 (a
     strided g is first put at the even voxels of a zero tensor)."""
-    _check_wgrad_operands(x, g, stride)
-    return _wgrad_math(x, g, stride)
+    _check_wgrad_operands(x, g, stride, pad_d)
+    return _wgrad_math(x, g, stride, pad_d)
 
 
 def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor,
-                    stride: int = 1) -> torch.Tensor:
+                    stride: int = 1, pad_d: int = 1) -> torch.Tensor:
     """Weight gradient of ``conv3d_k3``::
 
-        dW[kz, ky, kx, ci, co] = sum_{b,d,h,w} x[b, s d+kz-1, s h+ky-1,
+        dW[kz, ky, kx, ci, co] = sum_{b,d,h,w} x[b, s d+kz-p, s h+ky-1,
                                                  s w+kx-1, ci] * g[b, d, h, w, co]
 
-    with ``s`` the stride and out-of-volume x read as zero.
+    with ``s`` the stride, ``p`` the depth padding ``pad_d`` (1, or 0 for a
+    depth shard carrying a one-plane halo) and out-of-volume x read as
+    zero.
 
     Args:
       x: the conv's input ``(B, D, H, W, Cin)``, float32 or bfloat16,
@@ -658,16 +719,17 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor,
       g: the gradient of the conv's output ``(B, D', H', W', Cout)`` in
         x's type, contiguous (``ceil(n / stride)`` voxels per axis).
       stride: the conv's stride, 1 or 2.
+      pad_d: the conv's depth padding, 1 or 0.
 
     Returns ``(3, 3, 3, Cin, Cout)`` float32 (products accumulated in
     float32).  The CUDA kernels (tensor cores for bfloat16, CUDA cores for
     float32) sum in a fixed order, so the result is the same from run to
     run.
     """
-    _check_wgrad_operands(x, g, stride)
+    _check_wgrad_operands(x, g, stride, pad_d)
     if x.device.type == "cpu":
-        return _wgrad_math(x, g, stride)
-    return _wgrad_cuda(x, g, stride)
+        return _wgrad_math(x, g, stride, pad_d)
+    return _wgrad_cuda(x, g, stride, pad_d)
 
 
 conv3d_k3_wgrad.launches = 0

@@ -44,14 +44,17 @@ constexpr int VZ = 2;                   // output planes per thread
 constexpr int OZ = TZ * VZ;             // output tile depth
 constexpr int K3_THREADS = TX * TY * TZ;
 
-// D, H, W are the input's sizes, Do, Ho, Wo the output's (ceil(n / S)); the
-// tiles cover the output.
+// D, H, W are the input's sizes, Do, Ho, Wo the output's; the tiles cover the
+// output.  H and W are padded by 1 (Ho = ceil(H / S)), depth by pd: output
+// plane o reads input planes S o - pd .. S o - pd + 2 (pd 1: the conv's
+// zero padding; pd 0: a depth shard that carries its neighbours' planes;
+// pd 2: the stride-1 input gradient of a pd-0 conv).
 template <typename T, int CO_BLK, int S>
 __global__ void __launch_bounds__(K3_THREADS)
 conv3d_k3_kernel(const T* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ bias, T* __restrict__ y, int D,
                  int H, int W, int Do, int Ho, int Wo, int Cin, int Cout,
-                 int tiles_x, int tiles_y) {
+                 int tiles_x, int tiles_y, int pd) {
   // input halo of one tile, and input channels per stage (the halo of a
   // strided tile is 6.6 times larger, so it is staged 2 channels at a time
   // to stay inside the 48 KB of static shared memory)
@@ -89,7 +92,7 @@ conv3d_k3_kernel(const T* __restrict__ x, const float* __restrict__ w,
       const int ci = i % K3_CI, hv = i / K3_CI;
       const int hx = hv % HX, hy = (hv / HX) % HY, hz = hv / (HX * HY);
       const int gx = S * x0 + hx - 1, gy = S * y0 + hy - 1,
-                gz = S * z0 + hz - 1;
+                gz = S * z0 + hz - pd;
       float v = 0.f;
       if (c0 + ci < Cin && gx >= 0 && gx < W && gy >= 0 && gy < H &&
           gz >= 0 && gz < D)
@@ -159,56 +162,61 @@ conv3d_k3_kernel(const T* __restrict__ x, const float* __restrict__ w,
 
 template <typename T, int CO_BLK, int S>
 void launch_k3(const void* x, const void* w, const void* bias, void* y, int B,
-               int D, int H, int W, int Cin, int Cout, cudaStream_t s) {
-  const int Do = (D + S - 1) / S, Ho = (H + S - 1) / S, Wo = (W + S - 1) / S;
+               int D, int H, int W, int Cin, int Cout, int pd,
+               cudaStream_t s) {
+  const int Do = (D + 2 * pd - 3) / S + 1, Ho = (H + S - 1) / S,
+            Wo = (W + S - 1) / S;
   const int tiles_x = (Wo + TX - 1) / TX, tiles_y = (Ho + TY - 1) / TY;
   const int tiles_z = (Do + OZ - 1) / OZ;
   dim3 grid(tiles_x * tiles_y * tiles_z, B, (Cout + CO_BLK - 1) / CO_BLK);
   conv3d_k3_kernel<T, CO_BLK, S><<<grid, K3_THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<T*>(y), D, H, W, Do, Ho,
-      Wo, Cin, Cout, tiles_x, tiles_y);
+      Wo, Cin, Cout, tiles_x, tiles_y, pd);
 }
 
 template <typename T, int S>
 void dispatch_k3(const void* x, const void* w, const void* bias, void* y,
-                 int B, int D, int H, int W, int Cin, int Cout,
+                 int B, int D, int H, int W, int Cin, int Cout, int pd,
                  cudaStream_t s) {
   if (Cout <= 8)
-    launch_k3<T, 8, S>(x, w, bias, y, B, D, H, W, Cin, Cout, s);
+    launch_k3<T, 8, S>(x, w, bias, y, B, D, H, W, Cin, Cout, pd, s);
   else if (Cout <= 16)
-    launch_k3<T, 16, S>(x, w, bias, y, B, D, H, W, Cin, Cout, s);
+    launch_k3<T, 16, S>(x, w, bias, y, B, D, H, W, Cin, Cout, pd, s);
   else
-    launch_k3<T, 32, S>(x, w, bias, y, B, D, H, W, Cin, Cout, s);
+    launch_k3<T, 32, S>(x, w, bias, y, B, D, H, W, Cin, Cout, pd, s);
 }
 
 template <typename T>
 void dispatch_k3_stride(const void* x, const void* w, const void* bias,
                         void* y, int B, int D, int H, int W, int Cin,
-                        int Cout, int stride, cudaStream_t s) {
+                        int Cout, int stride, int pd, cudaStream_t s) {
   if (stride == 2)
-    dispatch_k3<T, 2>(x, w, bias, y, B, D, H, W, Cin, Cout, s);
+    dispatch_k3<T, 2>(x, w, bias, y, B, D, H, W, Cin, Cout, pd, s);
   else
-    dispatch_k3<T, 1>(x, w, bias, y, B, D, H, W, Cin, Cout, s);
+    dispatch_k3<T, 1>(x, w, bias, y, B, D, H, W, Cin, Cout, pd, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x is (B, D, H, W, Cin); y is (B, ceil(D/stride), ceil(H/stride),
-// ceil(W/stride), Cout); stride is 1 or 2.
+// x is (B, D, H, W, Cin); y is (B, (D + 2 pd - 3) / stride + 1,
+// ceil(H/stride), ceil(W/stride), Cout); stride is 1 or 2, pd (the depth
+// padding) 0, 1 or 2 (2 at stride 1 only).
 int conv3d_k3(int dtype, const void* x, const void* w, const void* bias,
               void* y, int B, int D, int H, int W, int Cin, int Cout,
-              int stride, void* stream) {
-  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+              int stride, int pd, void* stream) {
+  if ((stride != 1 && stride != 2) || pd < 0 || pd > 3 - stride ||
+      D + 2 * pd < 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == da::kBFloat16)
     dispatch_k3_stride<__nv_bfloat16>(x, w, bias, y, B, D, H, W, Cin, Cout,
-                                      stride, s);
+                                      stride, pd, s);
   else
     dispatch_k3_stride<float>(x, w, bias, y, B, D, H, W, Cin, Cout, stride,
-                              s);
+                              pd, s);
   return (int)cudaGetLastError();
 }
 

@@ -80,6 +80,17 @@
 //   * Stride 2: the tiles cover g, and input 2o + k - 1 is read for output
 //     o (the halo's x columns stored even before odd, as in the forward).
 //
+// Depth padding: every kernel takes pd, the padding of the depth axis (H and
+// W are always padded by 1).  pd 1 is the conv above.  pd 0 is the conv of a
+// depth shard whose input carries one neighbour plane on each side (a halo
+// exchange's output): output plane o reads planes S o .. S o + 2, there are
+// (D - 3) / S + 1 of them, and no plane is computed to be thrown away.  Its
+// input gradient is the forward at pd 2 at stride 1; at stride 2 the depth
+// parities trade roles (even i through taps 0 and 2, odd i through tap 1),
+// which the caller's tap table and the kernel's offsets follow.  The weight
+// gradient at pd 0 sums over the halo'd input.  pd only moves the depth
+// origin of the halo, so pd 1 is the same arithmetic as before.
+//
 // All take bf16 tensors and write the output in bf16 (the conv, after a
 // float32 bias) or float32 (dW).  Every entry point returns
 // cudaGetLastError() of its launches.
@@ -202,7 +213,7 @@ conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
                      const float* __restrict__ bias, bf16* __restrict__ y,
                      int SD, int SH, int SW, int YD, int YH, int YW, int Cin,
                      int CP, int Cy, int NP, int tiles_x, int tiles_y,
-                     int n_blocks_n, int vec, TapTable table) {
+                     int n_blocks_n, int vec, TapTable table, int pd) {
   using G = ConvGeo<MODE, TZ>;
   constexpr int THREADS = cv_threads<TZ>();
   constexpr int BN = 8 * NT, WLD = cv_wld<NT>();
@@ -223,18 +234,24 @@ conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
   const int cls = blockIdx.z / n_blocks_n;
   const int n0 = (blockIdx.z % n_blocks_n) * BN;
   const int ntap = MODE == kDxS2 ? table.n[cls] : 27;
+  // depth origin of the halo: the forward's starts pd planes before the
+  // tile; the strided dx's at grid plane pd - 1 (its taps reach grid
+  // offsets 0..1 at pd 1, -1..0 at pd 0)
+  const int zorg = MODE == kDxS2 ? pd - 1 : -pd;
 
   if (tid < 4) reinterpret_cast<uint32_t*>(zero)[tid] = 0u;
   if (MODE == kDxS2 && tid < 8) {
     // the halo offset of each of the class's taps: per axis, parity p
-    // meets the forward's tap k at grid offset (p + 1 - k) / 2; the
-    // weights are the adjoint's (flipped), whose row of tap k is 26 - k
+    // meets the forward's tap k at grid offset (p + 1 - k) / 2 (in depth
+    // (p + pd - k) / 2, taken from the halo's origin zorg); the weights
+    // are the adjoint's (flipped), whose row of tap k is 26 - k
     int off = 0, row = 0;
     if (tid < ntap) {
       const int tap = table.tap[cls][tid];
       const int kz = tap / 9, ky = (tap / 3) % 3, kx = tap % 3;
       const int pz = cls >> 2, py = (cls >> 1) & 1, px = cls & 1;
-      off = (((pz + 1 - kz) >> 1) * G::HY + ((py + 1 - ky) >> 1)) * G::HXS +
+      off = ((((pz + pd - kz) >> 1) - zorg) * G::HY + ((py + 1 - ky) >> 1)) *
+                G::HXS +
             ((px + 1 - kx) >> 1);
       row = 26 - tap;
     }
@@ -254,7 +271,7 @@ conv3d_k3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
       const int hx = i % G::HX, hy = (i / G::HX) % G::HY,
                 hz = i / (G::HX * G::HY);
       const int gx = G::S * tx0 + hx + G::ORG, gy = G::S * ty0 + hy + G::ORG,
-                gz = G::S * tz0 + hz + G::ORG;
+                gz = G::S * tz0 + hz + zorg;
       const bool in = gx >= 0 && gx < SW && gy >= 0 && gy < SH && gz >= 0 &&
                       gz < SD;
       unsigned char* dst =
@@ -396,7 +413,7 @@ template <int MODE, int NT, int TZ>
 int launch_conv(const void* x, const void* wpk, const void* bias, void* y,
                 int B, int SD, int SH, int SW, int GD, int GH, int GW, int YD,
                 int YH, int YW, int Cin, int Cy, int n_classes,
-                const TapTable& table, cudaStream_t s) {
+                const TapTable& table, int pd, cudaStream_t s) {
   constexpr int BN = 8 * NT;
   constexpr int smem = cv_smem_bytes<MODE, NT, TZ>();
   auto kernel = conv3d_k3_mma_kernel<MODE, NT, TZ>;
@@ -416,7 +433,7 @@ int launch_conv(const void* x, const void* wpk, const void* bias, void* y,
       static_cast<const bf16*>(x), static_cast<const bf16*>(wpk),
       static_cast<const float*>(bias), static_cast<bf16*>(y), SD, SH, SW, YD,
       YH, YW, Cin, round8(Cin), Cy, NP, tiles_x, tiles_y, n_blocks_n, vec,
-      table);
+      table, pd);
   return (int)cudaGetLastError();
 }
 
@@ -425,11 +442,11 @@ template <int MODE, int TZ = CV_TZ>
 int dispatch_conv(const void* x, const void* wpk, const void* bias, void* y,
                   int B, int SD, int SH, int SW, int GD, int GH, int GW,
                   int YD, int YH, int YW, int Cin, int Cy, int n_classes,
-                  const TapTable& table, cudaStream_t s) {
+                  const TapTable& table, int pd, cudaStream_t s) {
   const int np = round8(Cy);
 #define DA_CONV(NT)                                                          \
   launch_conv<MODE, NT, TZ>(x, wpk, bias, y, B, SD, SH, SW, GD, GH, GW, YD, \
-                            YH, YW, Cin, Cy, n_classes, table, s)
+                            YH, YW, Cin, Cy, n_classes, table, pd, s)
   if (np <= 8) return DA_CONV(1);
   if (np <= 16) return DA_CONV(2);
   if (np <= 32) return DA_CONV(4);
@@ -438,6 +455,9 @@ int dispatch_conv(const void* x, const void* wpk, const void* bias, void* y,
 }
 
 int out_size(int n, int stride) { return (n + stride - 1) / stride; }
+int out_depth(int d, int stride, int pd) {
+  return (d + 2 * pd - 3) / stride + 1;
+}
 
 // ------------------------------------------------------- weight gradient
 constexpr int WG_THREADS = 9 * 32;  // one warp per (kz, ky)
@@ -508,7 +528,8 @@ Tiling make_tiling(int B, int D, int H, int W, int tx, int ty, int tz,
 }
 
 // x is (B, D, H, W, Cin); g is (B, Do, Ho, Wo, Cout) with ceil(n / S)
-// voxels per axis; the tiles cover g.  A block: CI input channels from
+// voxels on H and W and Do = (D + 2 pd - 3) / S + 1; the tiles cover g.
+// A block: CI input channels from
 // blockIdx.y * CI, 8 * NT output channels from blockIdx.z * 8 * NT, the
 // tiles of chunk blockIdx.x.
 template <int S, int CI, int NT>
@@ -519,7 +540,7 @@ conv3d_k3_wgrad_mma_kernel(const bf16* __restrict__ x,
                            int Do, int Ho, int Wo, int Cin, int Cout,
                            int tiles_x, int tiles_y, int tiles_z,
                            long long n_tiles, int tiles_per_chunk, int vec_x,
-                           int vec_g) {
+                           int vec_g, int pd) {
   using G = WgradGeo<S>;
   constexpr int XLD = wg_xld<CI>(), GLD = wg_gld<NT>();
   constexpr int NC8 = CI / 8;         // 8-channel groups of the block
@@ -557,7 +578,7 @@ conv3d_k3_wgrad_mma_kernel(const bf16* __restrict__ x,
       const int hx = hv % G::HX, hy = (hv / G::HX) % G::HY,
                 hz = hv / (G::HX * G::HY);
       const int gx = S * x0 + hx - 1, gy = S * y0 + hy - 1,
-                gz = S * z0 + hz - 1;
+                gz = S * z0 + hz - pd;
       const int ci = ci0 + 8 * c8;
       const bool in = ci < Cin && gx >= 0 && gx < W && gy >= 0 && gy < H &&
                       gz >= 0 && gz < D;
@@ -695,20 +716,20 @@ int wg_nt(int Cout) {
 }
 
 Tiling wgrad_tiling(int B, int D, int H, int W, int Cin, int Cout,
-                    int stride) {
+                    int stride, int pd) {
   const int tx = stride == 1 ? WgradGeo<1>::TX : WgradGeo<2>::TX;
   const int ci = wg_ci(Cin), bn = 8 * wg_nt(Cout);
   const int channel_blocks = ((Cin + ci - 1) / ci) * ((Cout + bn - 1) / bn);
-  return make_tiling(B, out_size(D, stride), out_size(H, stride),
+  return make_tiling(B, out_depth(D, stride, pd), out_size(H, stride),
                      out_size(W, stride), tx, WgradGeo<1>::TY,
                      WgradGeo<1>::TZ, channel_blocks);
 }
 
 template <int S, int CI, int NT>
 int launch_wgrad(const void* x, const void* g, void* partial, int B, int D,
-                 int H, int W, int Cin, int Cout, cudaStream_t s) {
+                 int H, int W, int Cin, int Cout, int pd, cudaStream_t s) {
   constexpr int smem = wg_smem_bytes<S, CI, NT>();
-  const Tiling t = wgrad_tiling(B, D, H, W, Cin, Cout, S);
+  const Tiling t = wgrad_tiling(B, D, H, W, Cin, Cout, S, pd);
   auto kernel = conv3d_k3_wgrad_mma_kernel<S, CI, NT>;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
@@ -722,32 +743,32 @@ int launch_wgrad(const void* x, const void* g, void* partial, int B, int D,
   dim3 grid(t.chunks, (Cin + CI - 1) / CI, (Cout + 8 * NT - 1) / (8 * NT));
   kernel<<<grid, WG_THREADS, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      static_cast<float*>(partial), D, H, W, out_size(D, S), out_size(H, S),
-      out_size(W, S), Cin, Cout, t.tiles_x, t.tiles_y, t.tiles_z, t.n_tiles,
-      t.tiles_per_chunk, vec_x, vec_g);
+      static_cast<float*>(partial), D, H, W, out_depth(D, S, pd),
+      out_size(H, S), out_size(W, S), Cin, Cout, t.tiles_x, t.tiles_y,
+      t.tiles_z, t.n_tiles, t.tiles_per_chunk, vec_x, vec_g, pd);
   return (int)cudaGetLastError();
 }
 
 template <int S>
 int dispatch_wgrad(const void* x, const void* g, void* partial, int B, int D,
-                   int H, int W, int Cin, int Cout, cudaStream_t s) {
+                   int H, int W, int Cin, int Cout, int pd, cudaStream_t s) {
   const bool ci8 = wg_ci(Cin) == 8;
   switch (wg_nt(Cout)) {
     case 1:
       return ci8 ? launch_wgrad<S, 8, 1>(x, g, partial, B, D, H, W, Cin,
-                                         Cout, s)
+                                         Cout, pd, s)
                  : launch_wgrad<S, 16, 1>(x, g, partial, B, D, H, W, Cin,
-                                          Cout, s);
+                                          Cout, pd, s);
     case 2:
       return ci8 ? launch_wgrad<S, 8, 2>(x, g, partial, B, D, H, W, Cin,
-                                         Cout, s)
+                                         Cout, pd, s)
                  : launch_wgrad<S, 16, 2>(x, g, partial, B, D, H, W, Cin,
-                                          Cout, s);
+                                          Cout, pd, s);
     default:
       return ci8 ? launch_wgrad<S, 8, 4>(x, g, partial, B, D, H, W, Cin,
-                                         Cout, s)
+                                         Cout, pd, s)
                  : launch_wgrad<S, 16, 4>(x, g, partial, B, D, H, W, Cin,
-                                          Cout, s);
+                                          Cout, pd, s);
   }
 }
 
@@ -756,21 +777,25 @@ int dispatch_wgrad(const void* x, const void* g, void* partial, int B, int D,
 extern "C" {
 
 // x is (B, D, H, W, Cin) bf16; wpk the packed (K_pad, round8(Cout)) bf16
-// weights; bias (Cout,) float32 or null; y is (B, ceil(D/stride),
-// ceil(H/stride), ceil(W/stride), Cout) bf16; stride is 1 or 2.
+// weights; bias (Cout,) float32 or null; y is (B, (D + 2 pd - 3) / stride +
+// 1, ceil(H/stride), ceil(W/stride), Cout) bf16; stride is 1 or 2, pd (the
+// depth padding) 0, 1 or 2 (2 at stride 1 only: the input gradient of a
+// pd-0 conv).
 int conv3d_k3_mma(const void* x, const void* wpk, const void* bias, void* y,
                   int B, int D, int H, int W, int Cin, int Cout, int stride,
-                  void* stream) {
-  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+                  int pd, void* stream) {
+  if ((stride != 1 && stride != 2) || pd < 0 || pd > 3 - stride ||
+      D + 2 * pd < 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TapTable none = {};
-  const int Do = out_size(D, stride), Ho = out_size(H, stride),
+  const int Do = out_depth(D, stride, pd), Ho = out_size(H, stride),
             Wo = out_size(W, stride);
   if (stride == 2)
     return dispatch_conv<kFwdS2>(x, wpk, bias, y, B, D, H, W, Do, Ho, Wo, Do,
-                                 Ho, Wo, Cin, Cout, 1, none, s);
-  return dispatch_conv<kFwdS1>(x, wpk, bias, y, B, D, H, W, D, H, W, D, H, W,
-                               Cin, Cout, 1, none, s);
+                                 Ho, Wo, Cin, Cout, 1, none, pd, s);
+  return dispatch_conv<kFwdS1>(x, wpk, bias, y, B, D, H, W, Do, H, W, Do, H,
+                               W, Cin, Cout, 1, none, pd, s);
 }
 
 // Kernel K: the stride-1 conv without bias, p_blk (1..8) output planes a
@@ -783,7 +808,7 @@ int conv3d_k3_block_mma(const void* x, const void* wpk, void* y, int B, int D,
   const TapTable none = {};
 #define DA_BLOCK(TZ)                                                       \
   dispatch_conv<kFwdS1, TZ>(x, wpk, nullptr, y, B, D, H, W, D, H, W, D, H, \
-                            W, Cin, Cout, 1, none, s)
+                            W, Cin, Cout, 1, none, 1, s)
   switch (p_blk) {
     case 1: return DA_BLOCK(1);
     case 2: return DA_BLOCK(2);
@@ -798,13 +823,16 @@ int conv3d_k3_block_mma(const void* x, const void* wpk, void* y, int B, int D,
 #undef DA_BLOCK
 }
 
-// The input gradient of the stride-2 conv: g is (B, ceil(D/2), ceil(H/2),
-// ceil(W/2), Cg) bf16, wpk the packed adjoint weights (K_pad, round8(Cx)),
-// dx is (B, D, H, W, Cx) bf16; table holds each parity class's tap count
-// (8 ints) and then its taps (8 x 8 ints).
+// The input gradient of the stride-2 conv of depth padding pd (0 or 1): g
+// is (B, (D + 2 pd - 3) / 2 + 1, ceil(H/2), ceil(W/2), Cg) bf16, wpk the
+// packed adjoint weights (K_pad, round8(Cx)), dx is (B, D, H, W, Cx) bf16;
+// table holds each parity class's tap count (8 ints) and then its taps
+// (8 x 8 ints), the depth parities' taps as pd gives them.
 int conv3d_k3_dx_s2_mma(const void* g, const void* wpk, void* dx, int B,
                         int D, int H, int W, int Cg, int Cx, const int* table,
-                        void* stream) {
+                        int pd, void* stream) {
+  if ((pd != 0 && pd != 1) || D + 2 * pd < 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TapTable t;
   for (int c = 0; c < 8; ++c) {
@@ -816,33 +844,39 @@ int conv3d_k3_dx_s2_mma(const void* g, const void* wpk, void* dx, int B,
         return (int)cudaErrorInvalidValue;
     }
   }
-  const int Do = out_size(D, 2), Ho = out_size(H, 2), Wo = out_size(W, 2);
-  return dispatch_conv<kDxS2>(g, wpk, nullptr, dx, B, Do, Ho, Wo, Do, Ho, Wo,
-                              D, H, W, Cg, Cx, 8, t, s);
+  const int Do = out_depth(D, 2, pd), Ho = out_size(H, 2),
+            Wo = out_size(W, 2);
+  // the grid covers the input's classes: ceil(n / 2) voxels per axis
+  return dispatch_conv<kDxS2>(g, wpk, nullptr, dx, B, Do, Ho, Wo,
+                              out_size(D, 2), Ho, Wo, D, H, W, Cg, Cx, 8, t,
+                              pd, s);
 }
 
 // Chunks of partial sums the launch below writes: the caller allocates a
 // float32 workspace of (chunks, 27, Cin, Cout).  D, H, W are x's sizes.
 int conv3d_k3_wgrad_mma_chunks(int B, int D, int H, int W, int Cin, int Cout,
-                               int stride) {
-  return wgrad_tiling(B, D, H, W, Cin, Cout, stride).chunks;
+                               int stride, int pd) {
+  return wgrad_tiling(B, D, H, W, Cin, Cout, stride, pd).chunks;
 }
 
-// x is (B, D, H, W, Cin) bf16; g is (B, ceil(D/stride), ceil(H/stride),
-// ceil(W/stride), Cout) bf16; dw is (3, 3, 3, Cin, Cout) float32.
+// x is (B, D, H, W, Cin) bf16; g is (B, (D + 2 pd - 3) / stride + 1,
+// ceil(H/stride), ceil(W/stride), Cout) bf16; dw is (3, 3, 3, Cin, Cout)
+// float32; pd is 0 or 1.
 int conv3d_k3_wgrad_mma(const void* x, const void* g, void* partial, void* dw,
                         int B, int D, int H, int W, int Cin, int Cout,
-                        int stride, void* stream) {
-  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+                        int stride, int pd, void* stream) {
+  if ((stride != 1 && stride != 2) || (pd != 0 && pd != 1) ||
+      D + 2 * pd < 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
       stride == 2
-          ? dispatch_wgrad<2>(x, g, partial, B, D, H, W, Cin, Cout, s)
-          : dispatch_wgrad<1>(x, g, partial, B, D, H, W, Cin, Cout, s);
+          ? dispatch_wgrad<2>(x, g, partial, B, D, H, W, Cin, Cout, pd, s)
+          : dispatch_wgrad<1>(x, g, partial, B, D, H, W, Cin, Cout, pd, s);
   if (rc != 0) return rc;
   const int n = 27 * Cin * Cout;
   const int chunks =
-      conv3d_k3_wgrad_mma_chunks(B, D, H, W, Cin, Cout, stride);
+      conv3d_k3_wgrad_mma_chunks(B, D, H, W, Cin, Cout, stride, pd);
   wgrad_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(dw), n, chunks);
   return (int)cudaGetLastError();

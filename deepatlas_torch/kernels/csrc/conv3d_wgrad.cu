@@ -43,6 +43,12 @@
 //   It runs on the CUDA cores in float32 (bf16 products are exact in
 //   float32); the bf16 path's tensor-core version is conv3d_mma.cu.
 //
+//   The depth padding pd is 1 (the conv above) or 0, for a depth shard
+//   whose x carries one neighbour plane on each side: g then has
+//   (D - 3) / S + 1 planes and output o meets x planes S o .. S o + 2, so
+//   dW sums over the halo'd x as the unsharded conv sums over its padded
+//   one.  The tiling and the fixed-order chunk sums are the same.
+//
 // x and g share one type (float32 or bfloat16).  Every entry point returns
 // cudaGetLastError() of its launches.
 #include "common.cuh"
@@ -114,14 +120,14 @@ constexpr int wgrad_smem_bytes() {
 }
 
 // x is (B, D, H, W, Cin); g is (B, Do, Ho, Wo, Cout) with ceil(n / S) voxels
-// per axis; the tiles cover g.
+// on H and W and Do = (D + 2 pd - 3) / S + 1; the tiles cover g.
 template <typename T, int CI, int CO_T, int S>
 __global__ void __launch_bounds__(WG_THREADS)
 conv3d_k3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                        float* __restrict__ partial, int D, int H, int W,
                        int Do, int Ho, int Wo, int Cin, int Cout, int tiles_x,
                        int tiles_y, int tiles_z, long long n_tiles,
-                       int tiles_per_chunk) {
+                       int tiles_per_chunk, int pd) {
   constexpr int NCOG = 32 / CI;     // groups of output channels per warp
   constexpr int CO = NCOG * CO_T;   // output channels of a block
   constexpr int HX = halo_side(TX, S), HY = halo_side(TY, S);
@@ -164,7 +170,7 @@ conv3d_k3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
       const int c = i % CI, hv = i / CI;
       const int hx = hv % HX, hy = (hv / HX) % HY, hz = hv / (HX * HY);
       const int gx = S * x0 + hx - 1, gy = S * y0 + hy - 1,
-                gz = S * z0 + hz - 1;
+                gz = S * z0 + hz - pd;
       float v = 0.f;
       if (ci0 + c < Cin && gx >= 0 && gx < W && gy >= 0 && gy < H &&
           gz >= 0 && gz < D)
@@ -262,13 +268,17 @@ int channel_blocks(int Cin, int Cout) {
 }
 
 int out_size(int n, int stride) { return (n + stride - 1) / stride; }
+int out_depth(int d, int stride, int pd) {
+  return (d + 2 * pd - 3) / stride + 1;
+}
 
 template <typename T, int CI, int CO_T, int S>
 int launch_wgrad(const void* x, const void* g, void* partial, int B, int D,
-                 int H, int W, int Cin, int Cout, cudaStream_t s) {
+                 int H, int W, int Cin, int Cout, int pd, cudaStream_t s) {
   constexpr int CO = (32 / CI) * CO_T;
   constexpr int smem = wgrad_smem_bytes<CI, CO_T, S>();
-  const int Do = out_size(D, S), Ho = out_size(H, S), Wo = out_size(W, S);
+  const int Do = out_depth(D, S, pd), Ho = out_size(H, S),
+            Wo = out_size(W, S);
   const Tiling t = make_tiling(B, Do, Ho, Wo, channel_blocks(Cin, Cout));
   auto kernel = conv3d_k3_wgrad_kernel<T, CI, CO_T, S>;
   if (smem > 48 * 1024) {
@@ -280,33 +290,38 @@ int launch_wgrad(const void* x, const void* g, void* partial, int B, int D,
   kernel<<<grid, WG_THREADS, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
       static_cast<float*>(partial), D, H, W, Do, Ho, Wo, Cin, Cout,
-      t.tiles_x, t.tiles_y, t.tiles_z, t.n_tiles, t.tiles_per_chunk);
+      t.tiles_x, t.tiles_y, t.tiles_z, t.n_tiles, t.tiles_per_chunk, pd);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int S>
 int dispatch_wgrad(const void* x, const void* g, void* partial, int B, int D,
-                   int H, int W, int Cin, int Cout, cudaStream_t s) {
+                   int H, int W, int Cin, int Cout, int pd, cudaStream_t s) {
   switch (pick_variant(Cin, Cout)) {
     case kCi8Co8:
-      return launch_wgrad<T, 8, 2, S>(x, g, partial, B, D, H, W, Cin, Cout, s);
+      return launch_wgrad<T, 8, 2, S>(x, g, partial, B, D, H, W, Cin, Cout,
+                                      pd, s);
     case kCi8Co16:
-      return launch_wgrad<T, 8, 4, S>(x, g, partial, B, D, H, W, Cin, Cout, s);
+      return launch_wgrad<T, 8, 4, S>(x, g, partial, B, D, H, W, Cin, Cout,
+                                      pd, s);
     case kCi16Co16:
       return launch_wgrad<T, 16, 8, S>(x, g, partial, B, D, H, W, Cin, Cout,
-                                       s);
+                                       pd, s);
     default:
-      return launch_wgrad<T, 8, 8, S>(x, g, partial, B, D, H, W, Cin, Cout, s);
+      return launch_wgrad<T, 8, 8, S>(x, g, partial, B, D, H, W, Cin, Cout,
+                                      pd, s);
   }
 }
 
 template <typename T>
 int dispatch_wgrad_stride(const void* x, const void* g, void* partial, int B,
                           int D, int H, int W, int Cin, int Cout, int stride,
-                          cudaStream_t s) {
+                          int pd, cudaStream_t s) {
   return stride == 2
-             ? dispatch_wgrad<T, 2>(x, g, partial, B, D, H, W, Cin, Cout, s)
-             : dispatch_wgrad<T, 1>(x, g, partial, B, D, H, W, Cin, Cout, s);
+             ? dispatch_wgrad<T, 2>(x, g, partial, B, D, H, W, Cin, Cout, pd,
+                                    s)
+             : dispatch_wgrad<T, 1>(x, g, partial, B, D, H, W, Cin, Cout, pd,
+                                    s);
 }
 
 }  // namespace
@@ -314,29 +329,33 @@ int dispatch_wgrad_stride(const void* x, const void* g, void* partial, int B,
 extern "C" {
 
 // Chunks of partial sums the launch below writes: the caller allocates a
-// float32 workspace of (chunks, 27, Cin, Cout).  D, H, W are x's sizes.
+// float32 workspace of (chunks, 27, Cin, Cout).  D, H, W are x's sizes, pd
+// the depth padding (0 or 1).
 int conv3d_k3_wgrad_chunks(int B, int D, int H, int W, int Cin, int Cout,
-                           int stride) {
-  return make_tiling(B, out_size(D, stride), out_size(H, stride),
+                           int stride, int pd) {
+  return make_tiling(B, out_depth(D, stride, pd), out_size(H, stride),
                      out_size(W, stride), channel_blocks(Cin, Cout)).chunks;
 }
 
-// x is (B, D, H, W, Cin); g is (B, ceil(D/stride), ceil(H/stride),
-// ceil(W/stride), Cout); stride is 1 or 2.
+// x is (B, D, H, W, Cin); g is (B, (D + 2 pd - 3) / stride + 1,
+// ceil(H/stride), ceil(W/stride), Cout); stride is 1 or 2, pd 0 or 1.
 int conv3d_k3_wgrad(int dtype, const void* x, const void* g, void* partial,
                     void* dw, int B, int D, int H, int W, int Cin, int Cout,
-                    int stride, void* stream) {
-  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+                    int stride, int pd, void* stream) {
+  if ((stride != 1 && stride != 2) || (pd != 0 && pd != 1) ||
+      D + 2 * pd < 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
       dtype == da::kBFloat16
           ? dispatch_wgrad_stride<__nv_bfloat16>(x, g, partial, B, D, H, W,
-                                                 Cin, Cout, stride, s)
+                                                 Cin, Cout, stride, pd, s)
           : dispatch_wgrad_stride<float>(x, g, partial, B, D, H, W, Cin, Cout,
-                                         stride, s);
+                                         stride, pd, s);
   if (rc != 0) return rc;
   const int n = 27 * Cin * Cout;
-  const int chunks = conv3d_k3_wgrad_chunks(B, D, H, W, Cin, Cout, stride);
+  const int chunks =
+      conv3d_k3_wgrad_chunks(B, D, H, W, Cin, Cout, stride, pd);
   wgrad_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(dw), n, chunks);
   return (int)cudaGetLastError();

@@ -5,9 +5,9 @@ returns a factory; calling it with the reference's ``loss_settings`` kwargs
 yields the loss callable.  Every key of the JAX registry: ``dice``, the
 registration losses (``ncc``, ``lncc``, ``mse``, ``gradient``,
 ``bendingEnergy``, ``L2``) and the cross-entropy family (``focal``,
-``cross_entropy``, ``soft_cross_entropy``).  The ``axis_name`` settings of
-the JAX registry (depth-sharded losses) belong to the parallel tiers and
-have no counterpart yet.
+``cross_entropy``, ``soft_cross_entropy``).  The ``axis_name`` (and, for
+``dice``, ``batch_axis_name``) settings of the JAX registry take mesh
+``Axis`` objects (``parallel/mesh.py``) for the depth-sharded losses.
 """
 from __future__ import annotations
 
@@ -33,12 +33,15 @@ def _dice_factory(**kw):
                    weight_type=kw.get("weight_type", "Simple"),
                    no_bg=kw.get("no_bg", False),
                    softmax=kw.get("softmax", False),
-                   eps=kw.get("eps", 1e-7))
+                   eps=kw.get("eps", 1e-7),
+                   axis_name=kw.get("axis_name"),
+                   batch_axis_name=kw.get("batch_axis_name"))
 
 
 def _lncc_factory(**kw):
     return partial(lncc_loss, filter_size=kw.get("filter_size", 9),
-                   eps=kw.get("eps", 1e-6))
+                   eps=kw.get("eps", 1e-6),
+                   axis_name=kw.get("axis_name"))
 
 
 def _ncc_factory(**kw):
@@ -58,7 +61,8 @@ def _gradient_factory(**kw):
 def _bending_factory(**kw):
     return partial(bending_energy_loss, norm=kw.get("norm", "L2"),
                    spacing=kw.get("spacing", (1.0, 1.0, 1.0)),
-                   normalize=kw.get("normalize", True))
+                   normalize=kw.get("normalize", True),
+                   axis_name=kw.get("axis_name"))
 
 
 def _l2_factory(**kw):

@@ -10,21 +10,25 @@ Counterparts of ``deepatlas_tpu/losses/dice.py``:
     probabilities.
 
 Sums run over D, H, W of channel-last tensors in float32.  The mesh
-arguments of the JAX functions (``axis_name``, ``batch_axis_name``) belong
-to the parallel tiers and are not part of this port yet.
+arguments of the JAX functions take mesh ``Axis`` objects here
+(``parallel/mesh.py``): ``axis_name`` for a depth-sharded volume,
+``batch_axis_name`` for a batch split over replicas besides.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import one_hot
+from ..parallel.collectives import pmax, psum_many
 
 _SPATIAL = (1, 2, 3)
 
 
 def _class_weights(target_volume: torch.Tensor, weight_type: str,
-                   eps: float) -> torch.Tensor:
-    """Per-(batch, class) weights, normalized by the global max."""
+                   eps: float, batch_axis_name=None) -> torch.Tensor:
+    """Per-(batch, class) weights, normalized by the global max (over every
+    batch element: a ``pmax`` over ``batch_axis_name`` where the batch is
+    split)."""
     if weight_type == "Simple":
         weights = 1.0 / (target_volume ** (1.0 / 3.0) + eps)
     elif weight_type == "Volume":
@@ -38,13 +42,17 @@ def _class_weights(target_volume: torch.Tensor, weight_type: str,
         weights = torch.ones_like(target_volume)
     else:
         raise ValueError(f"Class weighting type {weight_type!r} does not exist!")
-    return weights / weights.max()
+    wmax = weights.max()
+    if batch_axis_name is not None:
+        wmax = pmax(wmax, batch_axis_name)
+    return weights / wmax
 
 
 def dice_loss_multiclass(source: torch.Tensor, target: torch.Tensor,
                          n_class: int, weight_type: str = "Simple",
                          no_bg: bool = False, softmax: bool = False,
-                         eps: float = 1e-7) -> torch.Tensor:
+                         eps: float = 1e-7, axis_name=None,
+                         batch_axis_name=None) -> torch.Tensor:
     """Multi-class soft dice loss.
 
     Args:
@@ -53,6 +61,14 @@ def dice_loss_multiclass(source: torch.Tensor, target: torch.Tensor,
       target: ``(B, D, H, W)`` integer mask, or ``(B, D, H, W, C)``
         probabilities / one-hot.
       n_class: number of classes (C).
+      axis_name: the mesh ``Axis`` a depth-sharded volume is split over:
+        the per-(batch, class) volume and intersection sums are summed over
+        it (differentiably) before the weights and scores, so the sharded
+        loss is the global one.
+      batch_axis_name: the ``Axis`` the batch is split over besides (DP x
+        SP): the per-(batch, class) sums stay local, the weights' normalizer
+        is a max over every element and the weighted score's numerator and
+        denominator are summed over it.
     """
     if softmax:
         source = torch.softmax(source, dim=-1)
@@ -71,10 +87,17 @@ def dice_loss_multiclass(source: torch.Tensor, target: torch.Tensor,
     source_volume = src.sum(dim=_SPATIAL, dtype=torch.float32)
     target_volume = tgt.sum(dim=_SPATIAL, dtype=torch.float32)
     intersection = (src * tgt).sum(dim=_SPATIAL, dtype=torch.float32)
-    weights = _class_weights(target_volume, weight_type, eps)
+    if axis_name is not None:
+        source_volume, target_volume, intersection = psum_many(
+            [source_volume, target_volume, intersection], axis_name)
+    weights = _class_weights(target_volume, weight_type, eps,
+                             batch_axis_name)
     scores = (2.0 * intersection + eps) / (source_volume + target_volume
                                            + 2.0 * eps)
-    return 1.0 - (weights * scores).sum() / weights.sum()
+    num, den = (weights * scores).sum(), weights.sum()
+    if batch_axis_name is not None:
+        num, den = psum_many([num, den], batch_axis_name)
+    return 1.0 - num / den
 
 
 def dice_loss_on_label(source: torch.Tensor, target: torch.Tensor,

@@ -13,6 +13,9 @@ from typing import Sequence
 
 import torch
 
+from ..ops.halo import halo_exchange_d
+from ..parallel.collectives import psum
+
 
 def _prep_spacing(spacing: Sequence[float], normalize: bool,
                   device) -> torch.Tensor:
@@ -48,19 +51,43 @@ def gradient_loss(field: torch.Tensor, norm: str = "L2",
 
 def bending_energy_loss(field: torch.Tensor, norm: str = "L2",
                         spacing: Sequence[float] = (1.0, 1.0, 1.0),
-                        normalize: bool = True) -> torch.Tensor:
+                        normalize: bool = True,
+                        axis_name=None) -> torch.Tensor:
     """Second-order bending-energy penalty over the interior voxels, with
     the per-component scale factors ``dims * sp / sp[a]^2`` (``dims`` the
-    field's sides over the smallest one when ``normalize``)."""
+    field's sides over the smallest one when ``normalize``).
+
+    ``axis_name``: the mesh ``Axis`` of a depth-sharded field.  The second
+    differences read one halo plane from the neighbours, the volume's first
+    and last planes (which the unsharded version crops) are masked out, and
+    the interior sums are summed over the shards: the single-process
+    loss."""
     sp = _prep_spacing(spacing, normalize, field.device)
-    dims = _spatial_dims(field, normalize)
     b, c = field.shape[0], field.shape[-1]
-    f = field
+    if axis_name is None:
+        dims = _spatial_dims(field, normalize)
+        f = field
+        mask = None
+    else:
+        d_loc, h, w = field.shape[1:4]
+        d_glob = d_loc * axis_name.size
+        dims = torch.tensor([float(d_glob), float(h), float(w)],
+                            dtype=torch.float32, device=field.device)
+        if normalize:
+            dims = dims / dims.min()
+        f = halo_exchange_d(field, axis_name, 1)
+        g = axis_name.index * d_loc + torch.arange(d_loc,
+                                                   device=field.device)
+        mask = ((g >= 1) & (g <= d_glob - 2)).float()[None, :, None, None,
+                                                      None]
     inner = f[:, 1:-1, 1:-1, 1:-1]
 
     def term(x):
-        return (x ** 2 if norm == "L2" else x.abs()).reshape(
-            b, -1, c).mean(dim=1)
+        v = x ** 2 if norm == "L2" else x.abs()
+        if mask is None:
+            return v.reshape(b, -1, c).mean(dim=1)
+        s = psum((v * mask).sum(dim=(1, 2, 3)), axis_name)
+        return s / ((d_glob - 2) * x.shape[2] * x.shape[3])
 
     dd0 = term(f[:, 2:, 1:-1, 1:-1] + f[:, :-2, 1:-1, 1:-1] - 2 * inner)
     dd1 = term(f[:, 1:-1, 2:, 1:-1] + f[:, 1:-1, :-2, 1:-1] - 2 * inner)

@@ -17,6 +17,8 @@ from typing import Sequence
 import torch
 
 from ..ops import window_sum
+from ..ops.halo import halo_exchange_d
+from ..parallel.collectives import psum
 
 
 def ncc_loss(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -56,10 +58,31 @@ def _lncc_cc(i_img, j_img, window, stride, dilation, eps: float):
 
 
 def lncc_loss(input: torch.Tensor, target: torch.Tensor,
-              filter_size: int = 9, eps: float = 1e-6) -> torch.Tensor:
+              filter_size: int = 9, eps: float = 1e-6,
+              axis_name=None) -> torch.Tensor:
     """VoxelMorph windowed LNCC: 1 - mean local CC^2 over the valid windows
-    of ``(B, D, H, W, C)`` volumes (C normally 1)."""
-    return 1.0 - torch.mean(_lncc_cc(input, target, filter_size, 1, 1, eps))
+    of ``(B, D, H, W, C)`` volumes (C normally 1).
+
+    ``axis_name``: the mesh ``Axis`` of a depth-sharded volume.  Each shard
+    takes a ``filter_size // 2``-plane halo, whose windows start at global
+    planes ``z0 - hp .. z0 + D_loc - hp`` (the shards tile every start once);
+    the starts outside the volume are masked and the masked sum is summed
+    over the shards and divided by the global count of valid windows --
+    the single-process loss."""
+    if axis_name is None:
+        return 1.0 - torch.mean(_lncc_cc(input, target, filter_size, 1, 1,
+                                         eps))
+    k = filter_size
+    hp = k // 2
+    b, d_loc = input.shape[:2]
+    d = d_loc * axis_name.size
+    cc = _lncc_cc(halo_exchange_d(input, axis_name, hp),
+                  halo_exchange_d(target, axis_name, hp), k, 1, 1, eps)
+    g = axis_name.index * d_loc - hp + torch.arange(cc.shape[1],
+                                                    device=cc.device)
+    mask = ((g >= 0) & (g <= d - k)).to(cc.dtype)[None, :, None, None, None]
+    total = b * (d - k + 1) * cc.shape[2] * cc.shape[3] * cc.shape[4]
+    return 1.0 - psum((cc * mask).sum(), axis_name) / total
 
 
 def multiscale_lncc_schedule(img_shape: Sequence[int]):

@@ -12,7 +12,8 @@ from functools import partial
 import torch
 
 from .convert import adam_from_optax, unet_from_flax, voxelmorph_from_flax
-from .layers import BatchNorm, ConvBlock, DeconvBlock, max_pool_3d
+from .layers import (BatchNorm, ConvBlock, DeconvBlock, max_pool_3d,
+                     use_spatial_axis)
 from .unet import UNET_DECODERS, UNET_ENCODERS, UNet, UNetTemplate
 from .voxelmorph import VoxelMorphCVPR2018
 
@@ -20,7 +21,7 @@ __all__ = ["adam_from_optax", "BatchNorm", "ConvBlock", "DeconvBlock",
            "UNet", "UNetLight", "UNetTemplate", "VoxelMorphCVPR2018",
            "get_available_networks", "get_network", "max_pool_3d",
            "network_dic", "resolve_model_settings", "unet_from_flax",
-           "voxelmorph_from_flax"]
+           "use_spatial_axis", "voxelmorph_from_flax"]
 
 # the UNet_light channel plan
 UNET_LIGHT_ENCODERS = ((8, 16), (16, 16, 32), (32, 32, 64), (64, 64, 64))

@@ -6,6 +6,14 @@ kernels of ``deepatlas_torch.kernels``.  Parameters are float32 in the JAX
 package's layouts (conv kernels ``(k, k, k, Cin, Cout)``), so converted
 checkpoints need no transposes; the blocks compute in their input's type.
 
+Depth sharding (``parallel/spatial.py``): every block and the BatchNorm
+carry ``spatial_axis``, a mesh ``Axis`` or None, set for a forward by
+``use_spatial_axis(model, axis)``.  A ``ConvBlock`` then reads one
+neighbour plane on each side through ``ops.halo.halo_exchange_d`` and runs
+kernel A with depth padding 0 (the unsharded SAME conv: stride 1, and
+stride 2 on an even shard depth), a ``DeconvBlock`` (kernel == stride) and
+max-pool are shard-local, and BatchNorm sums its moments over the shards.
+
 Rounding points in bfloat16 follow the JAX packed blocks
 (``models/packed.py``): the conv output is rounded to bf16, the bias is
 added in bf16, the BatchNorm affine runs in bf16 with its scale and shift
@@ -13,6 +21,7 @@ rounded to bf16, then the activation.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -21,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import conv3d_k3, deconv2x
+from ..ops.halo import halo_exchange_d
+from ..parallel.collectives import psum_many
 
 
 def get_activation(act: str) -> Callable:
@@ -60,7 +71,13 @@ class BatchNorm(nn.Module):
     The moments are plain tensor ops, so autograd differentiates through
     them.  In both modes the scale ``mul`` and shift ``add`` are rounded to
     the compute type and the map is ``x * mul + add``.
+
+    With a ``spatial_axis`` of more than one shard, train mode sums the
+    per-channel ``(sum x, sum x^2)`` over the shards in one differentiable
+    all-reduce and divides by the voxels of all of them (the JAX
+    ``PackedBatchNorm``'s psum of its moments).
     """
+    spatial_axis = None
 
     def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -74,9 +91,17 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             xf = x.float()
-            mean = xf.mean(dim=(0, 1, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 1, 2, 3)) - mean * mean).clamp(
-                min=0.0)
+            ax = self.spatial_axis
+            if ax is None or ax.size == 1:
+                mean = xf.mean(dim=(0, 1, 2, 3))
+                var = ((xf * xf).mean(dim=(0, 1, 2, 3)) - mean * mean
+                       ).clamp(min=0.0)
+            else:
+                n = xf.numel() // xf.shape[-1] * ax.size
+                s, s2 = psum_many([xf.sum(dim=(0, 1, 2, 3)),
+                                   (xf * xf).sum(dim=(0, 1, 2, 3))], ax)
+                mean = s / n
+                var = (s2 / n - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     mean, alpha=1 - self.momentum)
@@ -91,6 +116,7 @@ class BatchNorm(nn.Module):
 
 class _Block(nn.Module):
     """Kernel + bias + optional BatchNorm + activation."""
+    spatial_axis = None
 
     def __init__(self, kernel_shape, features: int, use_bias: bool,
                  batchnorm: bool, act: str):
@@ -128,7 +154,18 @@ class ConvBlock(_Block):
         self.stride = stride
 
     def _op(self, x):
-        return conv3d_k3(x, self.weight, stride=self.stride)
+        ax = self.spatial_axis
+        if ax is None:
+            return conv3d_k3(x, self.weight, stride=self.stride)
+        # output plane g of the stride-2 conv reads inputs 2g - 1 .. 2g + 1:
+        # on an even shard depth the shard's first output starts at its
+        # leading halo plane
+        if self.stride == 2 and x.shape[1] % 2:
+            raise ValueError(
+                f"stride-2 spatial conv needs even shard depth, got "
+                f"{x.shape[1]} -- use fewer shards or pad D")
+        return conv3d_k3(halo_exchange_d(x, ax, 1), self.weight,
+                         stride=self.stride, pad_d=0)
 
 
 class DeconvBlock(_Block):
@@ -142,6 +179,34 @@ class DeconvBlock(_Block):
 
     def _op(self, x):
         return deconv2x(x, self.weight)
+
+
+@contextlib.contextmanager
+def use_spatial_axis(model: nn.Module, axis):
+    """Run ``model`` depth-sharded over ``axis`` (a mesh ``Axis``) inside
+    the block: every submodule with a ``spatial_axis`` attribute takes it,
+    and gets back what it had on exit.  The parameters are the same
+    tensors, as the JAX tier's ``dataclasses.replace(model,
+    spatial_axis=...)`` shares its parameter tree."""
+    if getattr(model, "spatial_axis", "missing") == "missing":
+        raise ValueError(
+            f"{type(model).__name__} has no spatial_axis support; spatial "
+            f"sharding covers the UNetTemplate family and VoxelMorph")
+    mods = [m for m in model.modules() if hasattr(m, "spatial_axis")]
+    saved = [m.__dict__.get("spatial_axis", _UNSET) for m in mods]
+    for m in mods:
+        m.spatial_axis = axis
+    try:
+        yield model
+    finally:
+        for m, v in zip(mods, saved):
+            if v is _UNSET:
+                m.__dict__.pop("spatial_axis", None)
+            else:
+                m.spatial_axis = v
+
+
+_UNSET = object()
 
 
 def max_pool_3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:

@@ -13,6 +13,13 @@ max-pool, concat, bias, BatchNorm and activation are plain torch ops.
 
 Inputs are channel-last ``(B, D, H, W, C)``; outputs are raw logits
 ``(B, D, H, W, n_classes)``.
+
+Depth sharding: ``spatial_axis`` (a mesh ``Axis``, set for a forward by
+``layers.use_spatial_axis``) runs the net on one depth shard, every k3 conv
+on kernel A with depth padding 0 behind a one-plane halo exchange,
+BatchNorm moments summed over the shards, the pool, the k2 s2 deconvs and
+the head shard-local: the sharded forward is the unsharded one.  The
+shard's depth must satisfy the levels' divisibility rule on its own.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ class UNetTemplate(nn.Module):
     ``dtype`` is the compute type (``torch.bfloat16`` or None for the
     input's type); parameters stay float32.
     """
+    spatial_axis = None
 
     def __init__(self, encoders: Sequence[Sequence[int]],
                  decoders: Sequence[Sequence[int]], in_channel: int = 1,
@@ -128,17 +136,17 @@ class UNet(UNetTemplate):
 
     Its widest convs run kernel A at Cin 768 (the 512-channel up-conv
     concatenated with the 256-channel skip), kernel C at 512 -> 512.
-    ``spatial_axis`` (depth sharding) belongs to the parallel tier, which is
-    not ported: any value but None raises.
+    ``spatial_axis`` (a mesh ``Axis``, or None) shards depth as in
+    ``UNetTemplate``.
     """
 
     def __init__(self, in_channel: int = 1, n_classes: int = 2,
                  bias: bool = False, BN: bool = False,
                  dtype: Optional[torch.dtype] = None, spatial_axis=None):
-        if spatial_axis is not None:
-            raise NotImplementedError(
-                "spatial_axis (the depth-sharded tier) is not ported to "
-                "PyTorch yet; see Queue 1 item 5 of ROADMAP.md")
         super().__init__(UNET_ENCODERS, UNET_DECODERS, in_channel=in_channel,
                          n_classes=n_classes, bias=bias, BN=BN, act="ReLU",
                          dtype=dtype)
+        if spatial_axis is not None:
+            for m in self.modules():
+                if hasattr(m, "spatial_axis"):
+                    m.spatial_axis = spatial_axis

@@ -17,6 +17,14 @@ the packed trunk's ``packed_nearest_up2``), and the warp on the warp kernels
 (``kernels.grid_sample``).  Parameters of either JAX tree
 convert with ``convert.voxelmorph_from_flax``.
 
+Depth sharding: with ``spatial_axis`` (a mesh ``Axis``, set for a forward by
+``layers.use_spatial_axis``) every conv, the stride-2 encoder convs too,
+runs on kernel A with depth padding 0 behind a one-plane halo exchange
+(each strided level needs an even shard depth), the upsamples are
+shard-local exact doublings, the identity is the global grid sliced to the
+shard, and the warp is ``ops.halo.spatial_grid_sample`` (kernel E on the
+shard and a ``max_disp + 1``-plane halo, clamped at ``max_disp``).
+
 Channel-last layout; the displacement and deformation fields are
 ``(B, D, H, W, 3)`` float32, last axis (x, y, z) in normalized [-1, 1]
 units.  The head's output is cast to float32 and the warp runs in float32
@@ -32,6 +40,7 @@ from torch import nn
 
 from ..kernels import grid_sample, nearest_up2x
 from ..ops import identity_grid_batch, nearest_resize
+from ..ops.halo import shard_identity_grid, spatial_grid_sample
 from .layers import ConvBlock
 
 
@@ -46,6 +55,7 @@ class VoxelMorphCVPR2018(nn.Module):
       flow_scale: constant multiplier on the predicted displacement (1.0 =
         the reference semantics).
     """
+    spatial_axis = None
 
     def __init__(self, input_channel: int = 2, output_channel: int = 3,
                  enc_filters: Sequence[int] = (16, 32, 32, 32, 32),
@@ -107,9 +117,13 @@ class VoxelMorphCVPR2018(nn.Module):
         disp = self.trunk(source, target, train)
         if self.flow_scale != 1.0:
             disp = disp * self.flow_scale
-        deform = disp + identity_grid_batch(source.shape, dtype=disp.dtype,
-                                            device=disp.device)
-        return disp, deform
+        if self.spatial_axis is not None:
+            ident = shard_identity_grid(source.shape, self.spatial_axis,
+                                        dtype=disp.dtype, device=disp.device)
+        else:
+            ident = identity_grid_batch(source.shape, dtype=disp.dtype,
+                                        device=disp.device)
+        return disp, disp + ident
 
     def forward(self, source: torch.Tensor, target: torch.Tensor,
                 train: bool = False):
@@ -117,5 +131,13 @@ class VoxelMorphCVPR2018(nn.Module):
         (C normally 1).  Returns ``(disp_field, warped_source,
         deform_field)``."""
         disp, deform = self.deformation(source, target, train)
-        warped = grid_sample(source.float(), deform, max_disp=self.max_disp)
+        if self.spatial_axis is not None:
+            if self.max_disp is None:
+                raise ValueError("the depth-sharded warp needs max_disp (its "
+                                 "halo is max_disp + 1 planes)")
+            warped = spatial_grid_sample(source.float(), deform,
+                                         self.spatial_axis, self.max_disp)
+        else:
+            warped = grid_sample(source.float(), deform,
+                                 max_disp=self.max_disp)
         return disp, warped, deform

@@ -6,6 +6,13 @@ optimizer lifecycle.  Scalars and images go to ``ScalarWriter`` under the
 tag names the JAX package gives its TensorBoard summaries: a JSON-lines
 file and ``.npy`` files, and TensorBoard event files where the
 ``tensorboard`` package imports.
+
+The parallel tiers (config keys ``data_parallel`` and ``spatial_shards``,
+exclusive here as in the JAX experiments; DP x SP exists at the step level,
+``parallel/spatial.py``) run one process per rank, as torchrun starts them
+(``setup_parallel``).  Every rank loads the same batches with the same seed
+and keeps its block (``local_batch``: its rows, or its depth slab); rank 0
+alone writes logs, images and checkpoints.
 """
 from __future__ import annotations
 
@@ -84,10 +91,98 @@ class ScalarWriter:
             self.tensorboard.close()
 
 
+class NullWriter:
+    """The writer of a rank that logs nothing (ranks past 0)."""
+    tensorboard = None
+
+    def add_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def add_image(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class BaseExperiment:
+    mesh = None
+
     def __init__(self, config: dict, **kwargs):
         self.config = dict(config)
         self.writer = None
+
+    # parallel tiers -------------------------------------------------------
+    def setup_parallel(self) -> None:
+        """The mesh the config asks for, in ``self.mesh`` (None for one
+        process): ``spatial_shards`` > 1 splits depth over that many ranks,
+        ``data_parallel`` the batch over every rank of the world.  Raises
+        the JAX experiments' errors: the two are exclusive, and the batch
+        must divide by the replicas.  ``dist_backend`` / ``dist_init``
+        override the backend (NCCL on CUDA, gloo on the CPU) and the
+        process group's address (torchrun's ``env://``)."""
+        from ..parallel.mesh import env_world, make_mesh
+        sp = int(self.config.get("spatial_shards") or 0)
+        dp = bool(self.config.get("data_parallel"))
+        if sp > 1 and dp:
+            raise ValueError(
+                "spatial_shards and data_parallel are exclusive in the "
+                "experiment config; use the parallel/ API for a 2-D "
+                "(data, space) mesh")
+        if sp <= 1 and not dp:
+            self.mesh = None
+            return
+        import torch.distributed as dist
+        world = dist.get_world_size() if dist.is_initialized() \
+            else env_world()[1]
+        kw = dict(device=self.device, backend=self.config.get("dist_backend"),
+                  init_method=self.config.get("dist_init"))
+        if sp > 1:
+            if world != sp:
+                raise ValueError(f"spatial_shards={sp} needs {sp} ranks, the "
+                                 f"world has {world}")
+            self.mesh = make_mesh(space=sp, **kw)
+        else:
+            if self.config["batch_size"] % world:
+                raise ValueError(
+                    f"data_parallel needs batch_size divisible by {world} "
+                    f"replicas, got {self.config['batch_size']}")
+            self.mesh = make_mesh(data=world, **kw)
+        self.device = self.mesh.device
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes logs and checkpoints (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def spatial(self) -> bool:
+        return self.mesh is not None and self.mesh.axes["space"].size > 1
+
+    def local_batch(self, x: np.ndarray) -> np.ndarray:
+        """This rank's block of a loaded batch array: its depth slab under
+        ``spatial_shards``, its rows under ``data_parallel``."""
+        if self.mesh is None:
+            return x
+        from ..parallel.dp import shard_batch
+        from ..parallel.spatial import shard_volume_batch
+        if self.spatial:
+            return shard_volume_batch(x, self.mesh)
+        return shard_batch(x, self.mesh)
+
+    def checkpoint(self, state: dict, is_best: bool, path: str) -> None:
+        """``checkpoint.save_checkpoint`` on rank 0; every rank then waits
+        until it is written (a later ``test()`` or resume reads it)."""
+        from .checkpoint import save_checkpoint
+        if self.is_writer:
+            save_checkpoint(state, is_best, path)
+        if self.mesh is not None and self.mesh.world_size > 1:
+            import torch.distributed as dist
+            dist.barrier()
+
+    def make_writer(self, log_dir: str):
+        """A ``ScalarWriter`` on rank 0, a ``NullWriter`` elsewhere."""
+        return ScalarWriter(log_dir) if self.is_writer else NullWriter()
 
     # lifecycle hooks -----------------------------------------------------
     def setup_log(self):
@@ -122,8 +217,9 @@ class BaseExperiment:
 
     # helpers -------------------------------------------------------------
     def save_config_snapshot(self, path: str):
-        save_dict_to_json(self.config, os.path.join(path,
-                                                    "train_config.json"))
+        if self.is_writer:
+            save_dict_to_json(self.config, os.path.join(path,
+                                                        "train_config.json"))
 
     def train(self, **kwargs):
         raise NotImplementedError()

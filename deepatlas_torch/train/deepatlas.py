@@ -28,10 +28,14 @@ the registration panels of the first validation pair
 
 The device comes from the config key ``device`` (``cuda`` when absent; the
 experiment raises without a card unless ``device="cpu"`` is asked for).
-Not ported yet, and rejected rather than ignored when a config asks for
-them: ``data_parallel`` and ``spatial_shards`` (the parallel tiers);
-``checkpoint_seg_apply`` is rejected for good (see
-``make_joint_seg_step``).
+The parallel tiers (``train/base.py``): ``data_parallel`` splits each
+batch's pairs over the world's ranks (``parallel.dp.make_dp_joint_steps``:
+each rank takes its own rows' label regime), ``spatial_shards`` splits each
+volume's depth (``parallel.spatial.make_spatial_joint_steps``: the soft
+path on the lncc / bendingEnergy / dice triple, the warps clamped at
+``max_disp``, so the overflow guard only warns there).  Validation runs
+whole volumes on every rank.  ``checkpoint_seg_apply`` is rejected for
+good (see ``make_joint_seg_step``).
 """
 from __future__ import annotations
 
@@ -51,8 +55,8 @@ from ..kernels import grid_sample
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
 from ..utils import visualize
-from .base import BaseExperiment, ScalarWriter, test_logger
-from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from, save_checkpoint
+from .base import BaseExperiment, test_logger
+from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
 from .guard import make_guard
 from .reg_steps import (make_joint_reg_step, make_joint_seg_step,
                         make_reg_eval_step)
@@ -61,8 +65,6 @@ from .schedules import make_scheduler, scheduler_from_restored
 from .segmentation import summary_slices
 from .steps import (TrainState, make_optimizer, make_seg_eval_step,
                     set_learning_rate)
-
-_NOT_PORTED = ("data_parallel", "spatial_shards")
 
 # The escalation ladder's last clamped rung, in voxels: the JAX package's
 # MAX_PACKED_DISP (deepatlas_tpu/pallas/warp.py), the widest bound its TPU
@@ -78,16 +80,12 @@ ANATOMY_DTYPE = torch.bfloat16
 class DeepAtlasExperiment(BaseExperiment):
     def __init__(self, config):
         super().__init__(config)
-        for key in _NOT_PORTED:
-            if self.config.get(key):
-                raise NotImplementedError(
-                    f"config key {key!r} is not ported to PyTorch yet; see "
-                    f"Queue 1 of ROADMAP.md for the slice that brings it")
         if self.config.get("checkpoint_seg_apply"):
             raise NotImplementedError(
                 "checkpoint_seg_apply is not ported: recomputing the seg "
                 "net's train-mode forward would update BatchNorm twice")
         self.device = resolve_device(self.config.get("device"))
+        self.setup_parallel()
         if self.config.get("debug_mode"):
             print("Debug mode")
             self.config["print_batch_period"] = 2
@@ -116,7 +114,7 @@ class DeepAtlasExperiment(BaseExperiment):
     def setup_log(self):
         os.makedirs(self.ckpoint_dir, exist_ok=True)
         self.save_config_snapshot(self.ckpoint_dir)
-        self.writer = ScalarWriter(self.ckpoint_dir)
+        self.writer = self.make_writer(self.ckpoint_dir)
 
     def _transforms(self):
         transforms = [VolumeToArray()]
@@ -185,6 +183,10 @@ class DeepAtlasExperiment(BaseExperiment):
     def _init_state(self):
         self.seg_model.to(self.device)
         self.reg_model.to(self.device)
+        if self.mesh is not None:
+            from ..parallel import replicate
+            replicate(self.seg_model, self.mesh)
+            replicate(self.reg_model, self.mesh)
         self.seg_state = TrainState(self.seg_model, make_optimizer(
             self.seg_model, self.config["learning_rate"]))
         self.reg_state = TrainState(self.reg_model, make_optimizer(
@@ -194,32 +196,65 @@ class DeepAtlasExperiment(BaseExperiment):
         self.augmenter = make_augmenter(self.config.get("augmentation"))
         # escalate by default: the unclamped warp is the reference's
         # semantics, and a clamp-saturated field trains a surrogate of it
-        self.overflow_guard = make_guard(self.config,
-                                         default_mode="escalate")
+        self.overflow_guard = make_guard(
+            self.config, default_mode="warn" if self.spatial else "escalate")
 
     def _build_steps(self):
         """(Re)build the phase steps from the current config; also what the
         overflow guard's actions call after they change ``max_disp``."""
         n_class = self.config["n_classes"]
         max_disp = self.config.get("max_disp", 8)
-        # the seg phase's field is a constant: values-only warp backward
-        seg_warp_fn = partial(grid_sample, max_disp=max_disp, grad="values")
-        self.reg_step = make_joint_reg_step(
-            self.sim_loss, self.reg_loss,
-            self.config.get("reg_weight", 1.0),
-            self.config.get("anatomy_weight", 1.0), n_class,
-            warp_fn=partial(grid_sample, max_disp=max_disp),
-            anatomy_dtype=ANATOMY_DTYPE, max_disp=max_disp,
-            fused_anatomy=self.config.get("fused_anatomy",
-                                          max_disp is not None))
-        self.seg_step = make_joint_seg_step(
-            self.sup_loss, self.config.get("anatomy_weight", 1.0),
-            self.config.get("supervised_weight", 1.0), n_class,
-            warp_fn=seg_warp_fn, anatomy_dtype=ANATOMY_DTYPE,
-            hard_fused=self.config.get("hard_fused", max_disp is not None),
-            max_disp=max_disp)
+        weights = (self.config.get("reg_weight", 1.0),
+                   self.config.get("anatomy_weight", 1.0),
+                   self.config.get("supervised_weight", 1.0))
+        if self.spatial:
+            self._build_spatial_steps(n_class, max_disp, *weights)
+        else:
+            # the seg phase's field is a constant: values-only warp backward
+            seg_warp_fn = partial(grid_sample, max_disp=max_disp,
+                                  grad="values")
+            data_axis = None if self.mesh is None else self.mesh.axis("data")
+            self.reg_step = make_joint_reg_step(
+                self.sim_loss, self.reg_loss, weights[0], weights[1],
+                n_class, warp_fn=partial(grid_sample, max_disp=max_disp),
+                anatomy_dtype=ANATOMY_DTYPE, max_disp=max_disp,
+                fused_anatomy=self.config.get("fused_anatomy",
+                                              max_disp is not None),
+                data_axis=data_axis)
+            self.seg_step = make_joint_seg_step(
+                self.sup_loss, weights[1], weights[2], n_class,
+                warp_fn=seg_warp_fn, anatomy_dtype=ANATOMY_DTYPE,
+                hard_fused=self.config.get("hard_fused",
+                                           max_disp is not None),
+                max_disp=max_disp, data_axis=data_axis)
         self.seg_eval_step = make_seg_eval_step(n_class)
         self.reg_eval_step = make_reg_eval_step(n_class)
+
+    def _build_spatial_steps(self, n_class, max_disp, reg_weight,
+                             anatomy_weight, supervised_weight):
+        from ..parallel import make_spatial_joint_steps
+        losses = (self.config.get("sim_loss", "lncc"),
+                  self.config.get("reg_loss", "bendingEnergy"),
+                  self.config.get("seg_loss", "dice"))
+        if losses != ("lncc", "bendingEnergy", "dice"):
+            raise ValueError(
+                "spatial_shards supports the lncc/bendingEnergy/dice "
+                "loss triple (the axis_name-capable ones, losses/)")
+        if max_disp is None:
+            raise ValueError("spatial_shards needs max_disp: the depth-"
+                             "sharded warp reads a max_disp + 1-plane halo")
+        sup_kw = dict(self.config.get("seg_loss_settings", {}))
+        sup_kw.pop("n_class", None)
+        self.reg_step, self.seg_step = make_spatial_joint_steps(
+            self.seg_model, self.reg_model, get_loss_function("lncc"),
+            get_loss_function("bendingEnergy"), get_loss_function("dice"),
+            n_class=n_class, reg_weight=reg_weight,
+            anatomy_weight=anatomy_weight,
+            supervised_weight=supervised_weight, mesh=self.mesh,
+            max_disp=max_disp,
+            sim_kwargs=self.config.get("sim_loss_settings", {}),
+            reg_kwargs=self.config.get("reg_loss_settings", {}),
+            supervised_kwargs=sup_kw)
 
     def _apply_guard_action(self, action: dict):
         """Perform a DispOverflowGuard action: warn, widen ``max_disp``, or
@@ -292,8 +327,11 @@ class DeepAtlasExperiment(BaseExperiment):
         print("=> resumed from '{}' (epoch {})".format(resume_dir,
                                                        finished_epoch))
 
-    def _to_device(self, batch, key):
-        t = torch.from_numpy(batch[key]).to(self.device)
+    def _to_device(self, batch, key, local: bool = False):
+        """``batch[key]`` on the device (labels as int64); with ``local``
+        this rank's block of it (``local_batch``)."""
+        x = self.local_batch(batch[key]) if local else batch[key]
+        t = torch.from_numpy(x).to(self.device)
         return t.long() if key == "segmentation" else t
 
     # ------------------------------------------------------------- train
@@ -315,7 +353,7 @@ class DeepAtlasExperiment(BaseExperiment):
             # that never validates must still leave a checkpoint)
             if self.current_epoch % self.config["save_ckpts_epoch_period"] \
                     == 0:
-                save_checkpoint(self._checkpoint_state(), self._pending_best,
+                self.checkpoint(self._checkpoint_state(), self._pending_best,
                                 self.ckpoint_dir)
                 self._pending_best = False
             self.current_epoch += 1
@@ -335,17 +373,28 @@ class DeepAtlasExperiment(BaseExperiment):
         run_seg = {"loss": 0.0, "supervised": 0.0, "anatomy": 0.0}
         for i in range(iters):
             batch_m, batch_f = next(self._train_iter)
-            img_m = self._to_device(batch_m, "image")
-            img_f = self._to_device(batch_f, "image")
-            seg_m = self._to_device(batch_m, "segmentation")
-            seg_f = self._to_device(batch_f, "segmentation")
-            if self.augmenter is not None:
+            aug = self.augmenter is not None
+            # augmented whole, as one process does it, then cut to the
+            # rank's block
+            img_m = self._to_device(batch_m, "image", local=not aug)
+            img_f = self._to_device(batch_f, "image", local=not aug)
+            seg_m = self._to_device(batch_m, "segmentation", local=not aug)
+            seg_f = self._to_device(batch_f, "segmentation", local=not aug)
+            if aug:
                 akey = (self.config["random_seed"], 2 ** 20 + self.global_step)
                 img_m, seg_m = self.augmenter(fold_in(akey, 0), img_m, seg_m)
                 img_f, seg_f = self.augmenter(fold_in(akey, 1), img_f, seg_f)
-            args = (img_m, img_f, seg_m, seg_f,
-                    self._has_label_flags(batch_m),
-                    self._has_label_flags(batch_f))
+                if self.mesh is not None:
+                    img_m, img_f, seg_m, seg_f = (
+                        self.local_batch(t) for t in (img_m, img_f, seg_m,
+                                                      seg_f))
+            flags_m = self._has_label_flags(batch_m)
+            flags_f = self._has_label_flags(batch_f)
+            if self.mesh is not None and not self.spatial:
+                # data-parallel: the flags of the rank's rows
+                flags_m, flags_f = (self.local_batch(f)
+                                    for f in (flags_m, flags_f))
+            args = (img_m, img_f, seg_m, seg_f, flags_m, flags_f)
             # alternate phases (seg on even iterations, reg on odd)
             if i % 2 == 0:
                 self.seg_state, metrics = self.seg_step(self.seg_state,
@@ -497,7 +546,7 @@ class DeepAtlasExperiment(BaseExperiment):
         result = self.eval(seg_loader, reg_loader, self.config.get(
             "max_test_pairs", self.config.get("max_validation_pairs")))
         seg_per_class, seg_dice, reg_per_class, reg_dice, folding = result
-        if if_log:
+        if if_log and self.is_writer:
             n_fg = self.config["n_classes"] - 1
             class_name = self.config.get("class_name", {})
             with test_logger(os.path.join(self.ckpoint_dir,

@@ -11,6 +11,12 @@ filling in missing labels, and a seg-phase step that trains the seg net
 against the supervised loss and anatomy consistency through the frozen reg
 net's warp.  Label flags are host tensors (from the batch's names), so
 which branch a step takes is decided on the host, with no device sync.
+
+``data_axis`` (a mesh ``Axis``; ``parallel.dp.make_dp_joint_steps``) makes
+the joint steps data-parallel: each rank runs its rows, the gradients,
+BatchNorm statistics and metrics are averaged over the replicas in one
+all-reduce before the update, and the seg step weighs its supervised terms
+by the labelled branches of all replicas.
 """
 from __future__ import annotations
 
@@ -24,7 +30,18 @@ from ..losses import soft_dice_on_probs
 from ..metrics import jacobian_determinant, multiclass_dice
 from ..ops import (clamp_displacement, displacement_overflow, grid_sample,
                    one_hot, warp_labels)
+from ..parallel.collectives import (axis_size, batchnorm_stats, param_grads,
+                                    pmean_tree, psum_tree)
 from .steps import TrainState
+
+
+def _dp_reduce(model, metrics: list, axis) -> None:
+    """Average the gradients, BatchNorm statistics and ``metrics`` of a
+    data-parallel step over ``axis``, in one all-reduce (none at one
+    replica)."""
+    if axis_size(axis) > 1:
+        pmean_tree(param_grads(model) + batchnorm_stats(model) + metrics,
+                   axis)
 
 
 def make_reg_train_step(sim_loss: Callable, reg_loss: Callable,
@@ -95,7 +112,7 @@ def make_joint_reg_step(sim_loss: Callable, reg_loss: Callable,
                         n_class: int, warp_fn: Callable = grid_sample,
                         anatomy_dtype: Optional[torch.dtype] = None,
                         max_disp: Optional[int] = None,
-                        fused_anatomy: bool = False):
+                        fused_anatomy: bool = False, data_axis=None):
     """Reg-phase step of joint training: updates the reg net against
     ``sim + reg_weight * reg + anatomy_weight * anatomy``; the anatomy is
     the dice of the moving labels warped onto the fixed ones, each side's
@@ -136,13 +153,14 @@ def make_joint_reg_step(sim_loss: Callable, reg_loss: Callable,
                                       n_class)
         loss = sim + reg_weight * reg + anatomy_weight * anat
         loss.backward()
-        reg_state.optimizer.step()
-        reg_state.step += 1
         metrics = {"loss": loss.detach(), "sim": sim.detach(),
                    "reg": reg.detach(), "anatomy": anat.detach()}
         if max_disp is not None:
             metrics["disp_overflow"] = displacement_overflow(deform.detach(),
                                                              max_disp)
+        _dp_reduce(reg_state.model, list(metrics.values()), data_axis)
+        reg_state.optimizer.step()
+        reg_state.step += 1
         return reg_state, metrics
 
     return step
@@ -164,7 +182,7 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
                         checkpoint_apply: bool = False,
                         two_pass: bool = True,
                         hard_fused: bool = False,
-                        max_disp: Optional[int] = None):
+                        max_disp: Optional[int] = None, data_axis=None):
     """Seg-phase step of joint training: updates the seg net against
     ``anatomy_weight * anatomy + supervised_weight * supervised``, the
     anatomy taken through the frozen reg net's deformation (computed under
@@ -227,7 +245,16 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
         has_f = fixed_has_label.to(moving.device)
         any_m = float(bool(moving_has_label.any()))
         any_f = float(bool(fixed_has_label.any()))
-        sup_norm = max(any_m + any_f, 1.0)
+        n_dev = axis_size(data_axis)
+        sup_norm = any_m + any_f
+        if n_dev > 1:
+            # the labelled branches of every replica: the averaged gradient
+            # is then the labelled mean over the whole batch
+            count = torch.tensor([sup_norm], dtype=torch.float64)
+            if moving.is_cuda:
+                count = count.to(moving.device)
+            sup_norm = float(psum_tree(count, data_axis)) / n_dev
+        sup_norm = max(sup_norm, 1.0 / n_dev)
 
         def sup_term(logits, seg, any_side):
             sup = supervised_loss(logits.float(), seg)
@@ -331,11 +358,13 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
         else:
             branch = soft
         anat, sup_m, sup_f = branch()
+        anat = anat.detach()
+        sup = (sup_m.detach() * any_m + sup_f.detach() * any_f) / sup_norm
+        _dp_reduce(model, [anat, sup], data_axis)
         seg_state.optimizer.step()
         seg_state.step += 1
-        sup = (sup_m.detach() * any_m + sup_f.detach() * any_f) / sup_norm
-        loss = anatomy_weight * anat.detach() + supervised_weight * sup
-        return seg_state, {"loss": loss, "anatomy": anat.detach(),
+        loss = anatomy_weight * anat + supervised_weight * sup
+        return seg_state, {"loss": loss, "anatomy": anat,
                            "supervised": sup}
 
     return step

@@ -15,8 +15,11 @@ validation writes the image panels of the first validation pair
 The device comes from the config key ``device`` (``cuda`` when absent; the
 experiment raises without a card unless ``device="cpu"`` is asked for).
 
-Not ported yet, and rejected rather than ignored when a config asks for
-them: ``data_parallel`` and ``spatial_shards`` (the parallel tiers).  The
+The parallel tiers (``train/base.py``): ``data_parallel`` splits each
+batch's pairs over the world's ranks (``parallel.dp``), ``spatial_shards``
+splits each volume's depth (``parallel.spatial``; the lncc + bendingEnergy
+pair, the losses with depth-sharded reductions).  Validation runs whole
+volumes on every rank, as the JAX experiment keeps it on one device.  The
 model settings that choose between the JAX package's TPU execution paths
 (``packed``, ``use_pallas_warp``, ...) have no counterpart: the model's
 constructor refuses them.
@@ -38,13 +41,11 @@ from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
 from ..ops import warp_labels
 from ..utils import visualize
-from .base import BaseExperiment, ScalarWriter, test_logger
-from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from, save_checkpoint
+from .base import BaseExperiment, test_logger
+from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
 from .reg_steps import make_reg_eval_step, make_reg_train_step
 from .schedules import make_scheduler, scheduler_from_restored
 from .steps import TrainState, make_optimizer, set_learning_rate
-
-_NOT_PORTED = ("data_parallel", "spatial_shards")
 
 
 def write_registration_summaries(writer, model, loader, device,
@@ -87,12 +88,8 @@ def write_registration_summaries(writer, model, loader, device,
 class RegistrationExperiment(BaseExperiment):
     def __init__(self, config):
         super().__init__(config)
-        for key in _NOT_PORTED:
-            if self.config.get(key):
-                raise NotImplementedError(
-                    f"config key {key!r} is not ported to PyTorch yet; see "
-                    f"Queue 1 of ROADMAP.md for the slice that brings it")
         self.device = resolve_device(self.config.get("device"))
+        self.setup_parallel()
         if self.config.get("debug_mode"):
             print("Debug mode")
             self.config["print_batch_period"] = 2
@@ -124,7 +121,7 @@ class RegistrationExperiment(BaseExperiment):
     def setup_log(self):
         os.makedirs(self.ckpoint_dir, exist_ok=True)
         self.save_config_snapshot(self.ckpoint_dir)
-        self.writer = ScalarWriter(self.ckpoint_dir)
+        self.writer = self.make_writer(self.ckpoint_dir)
 
     def _transforms(self):
         transforms = [VolumeToArray()]
@@ -177,10 +174,33 @@ class RegistrationExperiment(BaseExperiment):
         self.state = TrainState(
             self.model, make_optimizer(self.model,
                                        self.config["learning_rate"]))
-        self.train_step = make_reg_train_step(
-            self.sim_loss, self.reg_loss, self.config.get("reg_weight", 1.0),
-            # surface the clamped warp's saturation as a step metric
-            max_disp=self.model.max_disp)
+        reg_weight = self.config.get("reg_weight", 1.0)
+        if self.spatial:
+            from ..parallel import make_spatial_reg_step, replicate
+            if self.config["loss"] != "lncc" or self.config.get(
+                    "reg_loss", "bendingEnergy") != "bendingEnergy":
+                raise ValueError(
+                    "spatial_shards supports the lncc + bendingEnergy "
+                    "losses (the axis_name-capable pair, losses/)")
+            replicate(self.model, self.mesh)
+            self.train_step = make_spatial_reg_step(
+                self.model, get_loss_function(self.config["loss"]),
+                get_loss_function(self.config.get("reg_loss",
+                                                  "bendingEnergy")),
+                reg_weight, self.mesh,
+                sim_kwargs=self.config.get("loss_settings", {}),
+                reg_kwargs=self.config.get("reg_loss_settings", {}))
+        elif self.mesh is not None:
+            from ..parallel import make_dp_reg_train_step, replicate
+            replicate(self.model, self.mesh)
+            self.train_step = make_dp_reg_train_step(
+                self.sim_loss, self.reg_loss, reg_weight, self.mesh,
+                max_disp=self.model.max_disp)
+        else:
+            self.train_step = make_reg_train_step(
+                self.sim_loss, self.reg_loss, reg_weight,
+                # surface the clamped warp's saturation as a step metric
+                max_disp=self.model.max_disp)
         self.eval_step = make_reg_eval_step(self.config["n_classes"])
 
     def _maybe_resume(self):
@@ -198,8 +218,11 @@ class RegistrationExperiment(BaseExperiment):
             print("=> resumed from '{}' (epoch {})".format(resume_dir,
                                                            finished_epoch))
 
-    def _to_device(self, batch, key):
-        return torch.from_numpy(batch[key]).to(self.device)
+    def _to_device(self, batch, key, local: bool = False):
+        """``batch[key]`` on the device; with ``local`` this rank's block of
+        it (``local_batch``)."""
+        x = self.local_batch(batch[key]) if local else batch[key]
+        return torch.from_numpy(x).to(self.device)
 
     # ------------------------------------------------------------- train
     def train(self):
@@ -220,7 +243,7 @@ class RegistrationExperiment(BaseExperiment):
             # that never validates must still leave a checkpoint)
             if self.current_epoch % self.config["save_ckpts_epoch_period"] \
                     == 0:
-                save_checkpoint({"epoch": self.current_epoch,
+                self.checkpoint({"epoch": self.current_epoch,
                                  "model": self.model.state_dict(),
                                  "optimizer":
                                      self.state.optimizer.state_dict(),
@@ -239,8 +262,8 @@ class RegistrationExperiment(BaseExperiment):
                  // self.config["batch_size"])
         for i in range(iters):
             batch_m, batch_f = next(self._train_iter)
-            moving = self._to_device(batch_m, "image")
-            fixed = self._to_device(batch_f, "image")
+            moving = self._to_device(batch_m, "image", local=True)
+            fixed = self._to_device(batch_f, "image", local=True)
             self.state, metrics = self.train_step(self.state, moving, fixed)
             self.global_step = ((self.current_epoch - 1) * iters + i + 1) \
                 * self.config["batch_size"]
@@ -346,7 +369,7 @@ class RegistrationExperiment(BaseExperiment):
         dice_per_class, dice_avg, folding = self.eval(
             self.validation_data_loader,
             max_pairs=self.config.get("max_validation_pairs"))
-        if if_log:
+        if if_log and self.is_writer:
             with test_logger(os.path.join(self.ckpoint_dir,
                                           "test_log.txt")) as log:
                 log.info("Testing Model: %s (%s epochs)", ckpoint_file,

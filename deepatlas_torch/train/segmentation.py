@@ -21,9 +21,13 @@ augmented one) and the last validation batch (``validation``).
 The device comes from the config key ``device`` (``cuda`` when absent; the
 experiment raises without a card unless ``device="cpu"`` is asked for).
 
-Not ported yet, and rejected rather than ignored when a config asks for
-them: ``data_parallel`` and ``spatial_shards`` (the parallel tiers).
-ROADMAP.md lists them.
+The parallel tiers (``train/base.py``): ``data_parallel`` splits each
+batch's rows over the world's ranks (``parallel.dp``; validation is
+data-parallel where ``valid_batch_size`` divides by the replicas, else
+every rank evaluates the whole batch), ``spatial_shards`` splits each
+volume's depth (``parallel.spatial``, the dice criterion only; validation
+is sharded too).  A training batch is augmented whole, then cut to the
+rank's block.
 """
 from __future__ import annotations
 
@@ -44,12 +48,10 @@ from ..models import get_network, resolve_model_settings
 from ..utils import visualize
 from ..utils.profiling import ThroughputMeter, annotate, trace
 from .base import BaseExperiment, ScalarWriter, test_logger
-from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from, save_checkpoint
+from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
 from .schedules import make_scheduler, scheduler_from_restored
 from .steps import (TrainState, make_optimizer, make_seg_eval_step,
                     make_seg_train_step, set_learning_rate)
-
-_NOT_PORTED = ("data_parallel", "spatial_shards")
 
 # the batch elements a segmentation summary shows
 SUMMARY_BATCH = 4
@@ -71,12 +73,8 @@ def summary_slices(images: np.ndarray, truths: np.ndarray,
 class SegmentationExperiment(BaseExperiment):
     def __init__(self, config):
         super().__init__(config)
-        for key in _NOT_PORTED:
-            if self.config.get(key):
-                raise NotImplementedError(
-                    f"config key {key!r} is not ported to PyTorch yet; see "
-                    f"Queue 1 of ROADMAP.md for the slice that brings it")
         self.device = resolve_device(self.config.get("device"))
+        self.setup_parallel()
         if self.config.get("debug_mode"):
             print("Debug mode")
             self.config["print_batch_period"] = 2
@@ -112,7 +110,7 @@ class SegmentationExperiment(BaseExperiment):
     def setup_log(self):
         os.makedirs(self.ckpoint_dir, exist_ok=True)
         self.save_config_snapshot(self.ckpoint_dir)
-        self.writer = ScalarWriter(self.ckpoint_dir)
+        self.writer = self.make_writer(self.ckpoint_dir)
 
     def _transforms(self):
         transforms = [VolumeToArray()]
@@ -181,8 +179,40 @@ class SegmentationExperiment(BaseExperiment):
         self.state = TrainState(
             self.model, make_optimizer(self.model,
                                        self.config["learning_rate"]))
-        self.train_step = make_seg_train_step(self.criterion)
-        self.eval_step = make_seg_eval_step(self.config["n_classes"])
+        n_class = self.config["n_classes"]
+        self.local_eval = False
+        if self.spatial:
+            from ..parallel import (make_spatial_seg_eval_step,
+                                    make_spatial_seg_step, replicate)
+            if self.config["loss"] != "dice":
+                raise ValueError(
+                    "spatial_shards currently supports the dice criterion "
+                    "(the only seg loss with axis_name shard reductions, "
+                    "losses/dice.py); got " + repr(self.config["loss"]))
+            replicate(self.model, self.mesh)
+            ls = dict(self.config["loss_settings"])
+            ls.pop("n_class", None)
+            self.train_step = make_spatial_seg_step(
+                self.model, get_loss_function(self.config["loss"]),
+                n_class=n_class, mesh=self.mesh, criterion_kwargs=ls)
+            self.eval_step = make_spatial_seg_eval_step(self.model, n_class,
+                                                        self.mesh)
+            self.local_eval = True
+        elif self.mesh is not None:
+            from ..parallel import (make_dp_seg_eval_step,
+                                    make_dp_seg_train_step, replicate)
+            replicate(self.model, self.mesh)
+            self.train_step = make_dp_seg_train_step(self.criterion,
+                                                     self.mesh)
+            if self.config.get("valid_batch_size", 1) % self.mesh.size:
+                # ragged eval batches: every rank evaluates the whole batch
+                self.eval_step = make_seg_eval_step(n_class)
+            else:
+                self.eval_step = make_dp_seg_eval_step(n_class, self.mesh)
+                self.local_eval = True
+        else:
+            self.train_step = make_seg_train_step(self.criterion)
+            self.eval_step = make_seg_eval_step(n_class)
         self.augmenter = make_augmenter(self.config.get("augmentation"))
 
     def _maybe_resume(self):
@@ -200,9 +230,12 @@ class SegmentationExperiment(BaseExperiment):
             print("=> resumed from '{}' (epoch {})".format(resume_dir,
                                                            finished_epoch))
 
-    def _to_device(self, batch):
-        images = torch.from_numpy(batch["image"]).to(self.device)
-        labels = torch.from_numpy(batch["segmentation"]).to(self.device)
+    def _to_device(self, batch, local: bool = False):
+        """The batch's images and labels on the device; with ``local`` this
+        rank's block of them (``local_batch``)."""
+        cut = self.local_batch if local else (lambda x: x)
+        images = torch.from_numpy(cut(batch["image"])).to(self.device)
+        labels = torch.from_numpy(cut(batch["segmentation"])).to(self.device)
         return images, labels
 
     # ------------------------------------------------------------- train
@@ -234,7 +267,7 @@ class SegmentationExperiment(BaseExperiment):
             # leave a checkpoint for test()/resume
             if self.current_epoch % self.config["save_ckpts_epoch_period"] \
                     == 0:
-                save_checkpoint({"epoch": self.current_epoch,
+                self.checkpoint({"epoch": self.current_epoch,
                                  "model": self.model.state_dict(),
                                  "optimizer":
                                      self.state.optimizer.state_dict(),
@@ -256,10 +289,17 @@ class SegmentationExperiment(BaseExperiment):
         batch = logits = None
         for i in range(iters_per_epoch):
             batch = next(self._train_iter)
-            images, labels = self._to_device(batch)
             if self.augmenter is not None:
+                # the whole batch, as one process augments it, then the
+                # rank's block of it
+                images, labels = self._to_device(batch)
                 akey = (self.config["random_seed"], 2 ** 20 + self.global_step)
                 images, labels = self.augmenter(akey, images, labels)
+                if self.mesh is not None:
+                    images = self.local_batch(images)
+                    labels = self.local_batch(labels)
+            else:
+                images, labels = self._to_device(batch, local=True)
             with annotate("seg_train_step"):
                 self.state, loss, logits = self.train_step(self.state,
                                                            images, labels)
@@ -291,7 +331,8 @@ class SegmentationExperiment(BaseExperiment):
         if (batch is not None and self.current_epoch
                 % self.config["save_ckpts_epoch_period"] == 0):
             summary = visualize.make_segmentation_image_summary(
-                *summary_slices(batch["image"], batch["segmentation"],
+                *summary_slices(self.local_batch(batch["image"]),
+                                self.local_batch(batch["segmentation"]),
                                 logits))
             self.writer.add_image("training", summary,
                                   global_step=self.global_step)
@@ -305,12 +346,13 @@ class SegmentationExperiment(BaseExperiment):
         dice_sum = np.zeros((n_fg,), np.float64)
         count = 0
         last = None
+        cut = self.local_batch if self.local_eval else (lambda x: x)
         for batch in dataloader:
-            images, labels = self._to_device(batch)
+            images, labels = self._to_device(batch, local=self.local_eval)
             dice, logits = self.eval_step(self.state, images, labels)
             dice_sum += dice.double().sum(dim=0).cpu().numpy()
             count += dice.shape[0]
-            last = (batch["image"], batch["segmentation"], logits)
+            last = (cut(batch["image"]), cut(batch["segmentation"]), logits)
         dice_per_class = dice_sum / max(count, 1)
         sample = None if last is None else summary_slices(*last)
         return dice_per_class, float(dice_per_class.mean()), sample
@@ -379,7 +421,7 @@ class SegmentationExperiment(BaseExperiment):
         self.model.load_state_dict(restored["model"])
 
         dice_per_class, dice_avg, _ = self.eval(self.testing_data_loader)
-        if if_log:
+        if if_log and self.is_writer:
             with test_logger(os.path.join(self.ckpoint_dir,
                                           "test_log.txt")) as log:
                 log.info("\n" + "=" * 50 + "\n")

@@ -13,6 +13,15 @@ runs on ``--device`` (default ``cuda``); ``--packed`` is accepted for flag
 compatibility and changes nothing, since this package has one execution
 path for both parameter trees.
 
+``--spatial-shards N`` serves whole volumes exactly instead of tiles: one
+process per rank, as torchrun starts them, each runs the network on its
+depth slab (``parallel.spatial.make_spatial_seg_forward``: halo-exchanged
+convs on kernel A at depth padding 0), the slabs' labels are gathered, and
+rank 0 prints and writes.  The depth must divide by N x 8 (UNet_light's
+levels on each slab).  Several ranks on one card take ``--dist-backend
+gloo``:
+  torchrun --nproc-per-node 2 infer_seg_torch.py ... --spatial-shards 2
+
 Example:
   python infer_seg_torch.py --ckpt <dir>/model_best --data-root <dir> \\
       --list-file test.txt --data OAI --n-classes 5 \\
@@ -55,16 +64,19 @@ def parse_args(argv=None):
     ap.add_argument("--flip-left", action="store_true",
                     help="OAI LEFT-knee flip preprocessing")
     ap.add_argument("--spatial-shards", type=int, default=0,
-                    help="depth-sharded whole-volume inference (not ported "
-                         "yet; values above 1 are rejected)")
+                    help="exact whole-volume inference with the depth split "
+                         "over this many ranks (parallel/spatial.py) instead "
+                         "of overlap tiles; depth divisible by shards x 8")
+    ap.add_argument("--dist-backend", default=None,
+                    help="process-group backend for --spatial-shards: nccl "
+                         "(default on CUDA) or gloo (several ranks on one "
+                         "card; the default on the CPU)")
+    ap.add_argument("--dist-init", default=None,
+                    help="process-group address (default env://, "
+                         "torchrun's)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run the network on")
-    args = ap.parse_args(argv)
-    if args.spatial_shards > 1:
-        ap.error("--spatial-shards is not ported to PyTorch yet (it comes "
-                 "with the parallel slice, see ROADMAP.md); run without it "
-                 "for overlap-tile inference")
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None):
@@ -81,6 +93,18 @@ def main(argv=None):
                                        sliding_window_predict, volume_dice)
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.spatial_shards > 1:
+        from deepatlas_torch.parallel import (make_mesh,
+                                              make_spatial_seg_forward,
+                                              shard_volume_batch)
+        from deepatlas_torch.parallel.collectives import all_gather
+        from deepatlas_torch.train import TrainState
+        mesh = make_mesh(space=args.spatial_shards, device=device,
+                         backend=args.dist_backend,
+                         init_method=args.dist_init)
+        device = mesh.device
+    writer = mesh is None or mesh.rank == 0
     transforms = [VolumeToArray()]
     if args.flip_left:
         transforms.append(LeftToRight())
@@ -94,9 +118,22 @@ def main(argv=None):
         dtype=torch.bfloat16 if args.bf16 else None)
     model.load_state_dict(load_checkpoint(args.ckpt)["model"])
     model.to(device).eval()
-    predict = make_tile_predictor(model, args.tile_batch)
+    if mesh is not None:
+        forward = make_spatial_seg_forward(model, mesh)
+        state = TrainState(model, None)
 
-    if args.out_dir:
+        def whole_volume(image):
+            """``(D, H, W)`` labels of one ``(D, H, W, 1)`` volume: this
+            rank's slab through the sharded forward, the slabs gathered
+            in depth order."""
+            slab = shard_volume_batch(image[None], mesh)
+            logits = forward(state, torch.from_numpy(slab).to(device))
+            labels = logits[0].argmax(dim=-1).to(torch.uint8)
+            return all_gather(labels, mesh.axis("space")).cpu().numpy()
+    else:
+        predict = make_tile_predictor(model, args.tile_batch)
+
+    if args.out_dir and writer:
         os.makedirs(args.out_dir, exist_ok=True)
 
     all_dice = []
@@ -104,8 +141,13 @@ def main(argv=None):
         name = batch["name"][0]
         sample = {"image": batch["image"][0],
                   "like": batch["like"][0] if "like" in batch else None}
-        pred = sliding_window_predict(predict, sample, args.tile_size,
-                                      args.overlap, is_vote=args.vote)
+        if mesh is not None:
+            pred = whole_volume(sample["image"])
+        else:
+            pred = sliding_window_predict(predict, sample, args.tile_size,
+                                          args.overlap, is_vote=args.vote)
+        if not writer:
+            continue
         line = {"name": name}
         if "segmentation" in batch:
             dice = volume_dice(pred, batch["segmentation"][0],
@@ -121,7 +163,7 @@ def main(argv=None):
             line["saved"] = out_path
         print(json.dumps(line), flush=True)
 
-    if all_dice:
+    if all_dice and writer:
         mean = np.stack(all_dice).mean(axis=0)
         print(json.dumps({"mean_dice_avg": round(float(mean.mean()), 4),
                           "mean_dice_per_class":

@@ -752,7 +752,7 @@ def test_mma_conv_and_input_grad_match_plain_on_card(cuda, shape, cin, cout,
     assert conv3d_k3.launches == before + 1
     _close(got, conv3d_k3_plain(x, w, b, stride=stride), 1e-2)
 
-    def no_zero_tensor(grad, dhw, s):
+    def no_zero_tensor(grad, dhw, s, pad_d=1):
         assert s == 1, "the strided input gradient built a zero-stuffed one"
         return grad
 

@@ -164,10 +164,13 @@ def test_infer_seg_torch_cli_matches_infer_seg(tmp_path, rng, capsys,
 def test_infer_seg_torch_rejects_spatial_shards_and_missing_cuda(tmp_path):
     import infer_seg_torch
 
-    with pytest.raises(SystemExit):
-        infer_seg_torch.parse_args(["--ckpt", "x", "--data-root", "x",
-                                    "--list-file", "x", "--n-classes", "2",
-                                    "--spatial-shards", "2"])
+    argv = ["--ckpt", "x", "--data-root", "x", "--list-file", "x",
+            "--n-classes", "2", "--spatial-shards", "2", "--device", "cpu"]
+    assert infer_seg_torch.parse_args(argv).spatial_shards == 2
+    # a world of one cannot hold 2 depth shards (the 2-rank run is in
+    # tests/test_torch_spatial.py)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        infer_seg_torch.main(argv)
     from deepatlas_torch import resolve_device
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

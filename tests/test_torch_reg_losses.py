@@ -177,7 +177,11 @@ def test_registration_keys_of_the_loss_registry(rng):
     # every key of the JAX registry, in its order
     assert losses.get_available_losses() == jlosses.get_available_losses()
     lncc = losses.get_loss_function("lncc")(filter_size=5, eps=1e-5)
-    assert lncc.keywords == {"filter_size": 5, "eps": 1e-5}
+    # the depth-sharded tier's axis rides along, as in the JAX registry
+    assert lncc.keywords == {"filter_size": 5, "eps": 1e-5,
+                             "axis_name": None}
+    assert lncc.keywords == jlosses.get_loss_function("lncc")(
+        filter_size=5, eps=1e-5).keywords
     # the cross-entropy keys build with the JAX factories' keywords and
     # compute the JAX values
     logits = rng.randn(2, 4, 5, 3, 4).astype(np.float32)

@@ -201,9 +201,20 @@ def test_resume_continues_at_the_next_epoch(trained_experiment):
 
 def test_unported_config_keys_and_missing_card_raise(corpus):
     config = tiny_config(corpus)
-    for key, value in (("data_parallel", True), ("spatial_shards", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DeepAtlasExperiment({**config, key: value})
+    # the parallel tiers: data_parallel runs at a world of one (its
+    # reductions skipped), spatial_shards needs its ranks, the two are
+    # exclusive, and the batch must divide by the replicas
+    exp = DeepAtlasExperiment({**config, "data_parallel": True})
+    assert exp.mesh is not None and exp.mesh.shape == {"data": 1,
+                                                       "space": 1}
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        DeepAtlasExperiment({**config, "spatial_shards": 2})
+    with pytest.raises(ValueError, match="exclusive"):
+        DeepAtlasExperiment({**config, "spatial_shards": 2,
+                 "data_parallel": True})
+    with mock.patch.dict(os.environ, {"WORLD_SIZE": "2"}), \
+            pytest.raises(ValueError, match="divisible by 2"):
+        DeepAtlasExperiment({**config, "data_parallel": True, "batch_size": 1})
     # the augmenter and image summaries are ported: accepted
     for key, value in (("augmentation", {"rigid": {}}),
                        ("image_summary", True)):
@@ -363,9 +374,13 @@ def test_cli_raises_without_a_card(corpus, tmp_path, monkeypatch):
         train_deepatlas_torch.main(argv + ["--device", "cpu",
                                            "--num-samples", "5"])
     assert not (tmp_path / "logs").exists()
-    for flag in ("--no-packed", "--data-parallel", "--spatial-shards=2"):
-        with pytest.raises(SystemExit):
-            train_deepatlas_torch.parse_args(argv + [flag])
+    with pytest.raises(SystemExit):
+        train_deepatlas_torch.parse_args(argv + ["--no-packed"])
+    # the parallel tiers' flags reach the config
+    config = train_deepatlas_torch.build_config(
+        train_deepatlas_torch.parse_args(argv + ["--data-parallel",
+                                                 "--spatial-shards=2"]))
+    assert (config["data_parallel"], config["spatial_shards"]) == (True, 2)
 
 
 def test_a_jax_joint_checkpoint_crosses(tmp_path):

@@ -210,9 +210,20 @@ def test_resume_continues_at_the_next_epoch(trained_experiment):
 
 def test_unported_config_keys_and_missing_card_raise(corpus):
     config = tiny_config(corpus)
-    for key, value in (("data_parallel", True), ("spatial_shards", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RegistrationExperiment({**config, key: value})
+    # the parallel tiers: data_parallel runs at a world of one (its
+    # reductions skipped), spatial_shards needs its ranks, the two are
+    # exclusive, and the batch must divide by the replicas
+    exp = RegistrationExperiment({**config, "data_parallel": True})
+    assert exp.mesh is not None and exp.mesh.shape == {"data": 1,
+                                                       "space": 1}
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        RegistrationExperiment({**config, "spatial_shards": 2})
+    with pytest.raises(ValueError, match="exclusive"):
+        RegistrationExperiment({**config, "spatial_shards": 2,
+                 "data_parallel": True})
+    with mock.patch.dict(os.environ, {"WORLD_SIZE": "2"}), \
+            pytest.raises(ValueError, match="divisible by 2"):
+        RegistrationExperiment({**config, "data_parallel": True, "batch_size": 1})
     # image summaries are ported: accepted either way
     for value in (True, False):
         RegistrationExperiment({**config, "image_summary": value})
@@ -305,9 +316,15 @@ def test_cli_raises_without_a_card(corpus, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="21 or 65"):
         train_reg_torch.main(argv + ["--device", "cpu", "--num-samples", "5"])
     assert not (tmp_path / "logs").exists()
-    for flag in ("--no-pallas-warp", "--no-packed", "--data-parallel"):
+    for flag in ("--no-pallas-warp", "--no-packed"):
         with pytest.raises(SystemExit):
             train_reg_torch.parse_args(argv + [flag])
+    # the parallel tiers' flags reach the config
+    config = train_reg_torch.build_config(train_reg_torch.parse_args(
+        argv + ["--data-parallel", "--spatial-shards", "2",
+                "--dist-backend", "gloo"]))
+    assert (config["data_parallel"], config["spatial_shards"],
+            config["dist_backend"]) == (True, 2, "gloo")
 
 
 def test_a_jax_registration_checkpoint_crosses(tmp_path, rng):

@@ -210,9 +210,20 @@ def test_checkpoint_helpers(tmp_path):
 
 def test_unported_config_keys_and_missing_card_raise(tmp_path):
     config = tiny_config(tmp_path)
-    for key, value in (("data_parallel", True), ("spatial_shards", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SegmentationExperiment({**config, key: value})
+    # the parallel tiers: data_parallel runs at a world of one (its
+    # reductions skipped), spatial_shards needs its ranks, the two are
+    # exclusive, and the batch must divide by the replicas
+    exp = SegmentationExperiment({**config, "data_parallel": True})
+    assert exp.mesh is not None and exp.mesh.shape == {"data": 1,
+                                                       "space": 1}
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        SegmentationExperiment({**config, "spatial_shards": 2})
+    with pytest.raises(ValueError, match="exclusive"):
+        SegmentationExperiment({**config, "spatial_shards": 2,
+                 "data_parallel": True})
+    with mock.patch.dict(os.environ, {"WORLD_SIZE": "2"}), \
+            pytest.raises(ValueError, match="divisible by 2"):
+        SegmentationExperiment({**config, "data_parallel": True, "batch_size": 1})
     # the patch samplers and the augmenter are ported: accepted
     for key, value in (("augmentation", {"rigid": {}}),
                        ("patch_size", [8, 8, 8])):

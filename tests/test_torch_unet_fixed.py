@@ -194,8 +194,14 @@ def test_registry_remat_tree_and_keywords():
     assert [tuple(u.weight.shape) for u in model.ups] == [
         (2, 2, 2, 512, 512), (2, 2, 2, 256, 256), (2, 2, 2, 128, 128)]
     assert tuple(model.head.weight.shape) == (64, NC)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNet(spatial_axis="d")
+    # spatial_axis (the depth-sharded tier's mesh axis) reaches every
+    # block and BatchNorm, as the JAX UNet passes it to its blocks
+    from deepatlas_torch.parallel import make_mesh
+    axis = make_mesh().axis("space")
+    sharded = UNet(spatial_axis=axis)
+    assert sharded.spatial_axis is axis
+    assert all(m.spatial_axis is axis for m in sharded.modules()
+               if hasattr(m, "spatial_axis"))
     # a remat-built JAX UNet names its blocks Checkpoint*: its tree (the
     # standard tree relabelled) converts to the same weights and logits
     x, _, _, variables, model = build(True)

@@ -9,12 +9,16 @@ cropped to 168x200x168, LNCC (filter 9) + bending energy, Adam, multiStep
 schedule.  The network runs on ``--device`` (default ``cuda``; without a
 CUDA device the script raises unless ``--device cpu`` is given).  The JAX
 CLI's ``--no-pallas-warp`` and ``--no-packed`` choose between TPU execution
-paths and have no counterpart; ``--data-parallel`` and ``--spatial-shards``
-have none yet (see ROADMAP.md).
+paths and have no counterpart.
 
 Example:
   python train_reg_torch.py --data-root <dir> --log-root logs \\
       --num-samples 21 --num-epochs 100
+
+The parallel tiers run one process per rank, as torchrun starts them:
+  torchrun --nproc-per-node N train_reg_torch.py ... --data-parallel
+  torchrun --nproc-per-node N train_reg_torch.py ... --spatial-shards N
+(several ranks on one card: add ``--dist-backend gloo``).
 """
 import argparse
 import os
@@ -96,6 +100,21 @@ def parse_args(argv=None):
                              "space is N*(N-1))")
     parser.add_argument("--test_only", "-t", action="store_true")
     parser.add_argument("--batch-size", type=int, default=1)
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="split each batch over the ranks torchrun "
+                             "starts (parallel/dp.py; batch size must "
+                             "divide)")
+    parser.add_argument("--spatial-shards", type=int, default=0,
+                        help="split each volume's depth over this many "
+                             "ranks (parallel/spatial.py; torchrun "
+                             "--nproc-per-node N)")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend: nccl (default on "
+                             "CUDA) or gloo (default on the CPU; on CUDA: "
+                             "several ranks on one card)")
+    parser.add_argument("--dist-init", default=None,
+                        help="process-group address (default env://, "
+                             "torchrun's)")
     parser.add_argument("--data-root", "-root", default="./data", type=str)
     parser.add_argument("--log-root", "-log", default="./logs", type=str)
     return parser.parse_args(argv)

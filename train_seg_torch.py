@@ -6,12 +6,19 @@ config keys: UNet_light, 32 classes, bias + BatchNorm, bf16 compute, batch 1,
 182x218x182 volumes cropped to 168x200x168, dice loss, Adam, multiStep
 schedule.  The network runs on ``--device`` (default ``cuda``; without a
 CUDA device the script raises unless ``--device cpu`` is given).  The JAX
-CLI's ``--no-packed``, ``--data-parallel`` and ``--spatial-shards`` have no
-counterpart here yet (see ROADMAP.md).
+CLI's ``--no-packed`` chooses between TPU execution paths and has no
+counterpart.  ``--spatial-shards`` needs a depth that each shard's U-Net
+levels divide (the recipe's 168 does not split in two: 84 planes are not a
+multiple of 8).
 
 Example:
   python train_seg_torch.py --data-root <dir> --log-root logs \\
       --num-samples 21 --num-epochs 100
+
+The parallel tiers run one process per rank, as torchrun starts them:
+  torchrun --nproc-per-node N train_seg_torch.py ... --data-parallel
+  torchrun --nproc-per-node N train_seg_torch.py ... --spatial-shards N
+(several ranks on one card: add ``--dist-backend gloo``).
 """
 import argparse
 import os
@@ -91,6 +98,21 @@ def parse_args(argv=None):
                         help="learning rate")
     parser.add_argument("--test_only", "-t", action="store_true",
                         help="only test model")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="split each batch over the ranks torchrun "
+                             "starts (parallel/dp.py; batch size must "
+                             "divide)")
+    parser.add_argument("--spatial-shards", type=int, default=0,
+                        help="split each volume's depth over this many "
+                             "ranks (parallel/spatial.py; torchrun "
+                             "--nproc-per-node N)")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend: nccl (default on "
+                             "CUDA) or gloo (default on the CPU; on CUDA: "
+                             "several ranks on one card)")
+    parser.add_argument("--dist-init", default=None,
+                        help="process-group address (default env://, "
+                             "torchrun's)")
     parser.add_argument("--data-root", "-root", default="./data", type=str,
                         help="root of the data folder")
     parser.add_argument("--log-root", "-log", default="./logs", type=str,
