@@ -197,17 +197,49 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      72x72x64 crop corpus (42 steps, falling losses).  The kernels phase
      holds A and D at depth padding 0 at the shards' shapes (path
      ``parallel``).
+ 13. remat -- rematerialization against the same steps without it, bit for
+     bit (losses, gradients, BatchNorm statistics moved once, parameters,
+     after the first and the last step), from one seeded state: (a)
+     UNet_light on train_seg.py's recipe (168x200x168, 32 classes, bf16)
+     and (b) VoxelMorph on train_reg.py's recipe (a pair of the reg phase's
+     corpus), ``remat`` off and on, 8 steps each: the step's median
+     seconds and peak memory, the launches per step against the table
+     (remat adds one forward of every ConvBlock and DeconvBlock), and the
+     remat UNet_light's serving forward (14 / 3 / 1 per tile batch); (c)
+     the joint experiment's seg step, 4 steps per label regime, with
+     ``checkpoint_seg_apply`` off and on (one more forward of the seg net
+     per differentiated apply); (d) the fixed UNet through the seg
+     experiment (``"model": "UNet"``, ``"remat"`` in its model settings, 5
+     classes, BatchNorm, batch 1) on synthetic OAI volumes: 4 steps each
+     way on their middle 80x384x384 (both peaks; the medians of (c) and
+     (d) over the warm steps, all but the first), then 4 steps with remat
+     on the whole 160x384x384 volume in a child process under PyTorch's
+     expandable-segments allocator (``REMAT_WHOLE_ALLOC_CONF``; finite
+     losses, the step's median seconds and peak; the peak without remat
+     logged as the 80-plane reading scaled by depth, marked so).  Every
+     remat peak must lie below
+     its plain one.  The kernels phase holds the whole-volume step's A, B,
+     C and D launches past 2^31 elements (A's 192-channel input and input
+     gradient, C's 128-channel output; B's 64-channel head near it)
+     against the same kernels on 40-plane depth slabs (A, B, C bit for
+     bit, D's weight gradient the slabs' sum within ``TOL["float32"]``),
+     the first slab against its plain version (path ``remat``), with B's
+     and C's CUDA-core kernels timed on the same slabs.
 
 The reg and joint phases also check their image summaries (every panel,
 or a named ``deform_grid`` line where matplotlib does not import; the
 validation's summary forward adds one VoxelMorph evaluation's launches).
 Then the ``nvidia-smi`` line, the kernels summary line and, last,
 ``{"ok": true, "device": {...}}``.  Run with no arguments:
-``python3 chip_smoke.py``.
+``python3 chip_smoke.py``.  ``python3 chip_smoke.py --remat-depths 128
+144 160`` runs only the remat phase's whole-volume process at those OAI
+depths, under PyTorch's default allocator and its expandable segments
+(one JSON line each): the depth that fits one card.
 """
 import argparse
 import contextlib
 import functools
+import gc
 import io
 import json
 import os
@@ -275,7 +307,7 @@ SOURCES_BY_DTYPE = {
 DETERMINISTIC = ("conv3d_k3_wgrad", "deconv2x", "conv3d_point",
                  "splat_trilinear")
 PATHS = ("serving", "training", "registration", "joint", "unet_serving",
-         "unet_training", "oai_patch_training", "parallel")
+         "unet_training", "oai_patch_training", "parallel", "remat")
 # paths whose convolutions the kernels phase checks in bfloat16 only: the
 # type they run in (their float32 checks would repeat the training path's)
 BF16_ONLY_PATHS = ("oai_patch_training",)
@@ -656,6 +688,17 @@ CUDA_CORE_TIMES = ("cuda_core_ms", "cuda_core_device_ms")
 WARP_KERNELS = ("warp_trilinear", "warp_grid_grad", "splat_trilinear")
 
 
+def cuda_core_call(name, x, w):
+    """The call of ``name`` (one of ``CUDA_CORE_TWINS``) on its CUDA-core
+    kernel, through its C entry point, with ``x`` and the weights ``w``."""
+    from deepatlas_torch.kernels import conv3d, deconv3d
+    from deepatlas_torch.kernels.conv3d import kernel_operands
+
+    simt = {"deconv2x": deconv3d._deconv_simt,
+            "conv3d_point": conv3d._point_simt}[name]
+    return functools.partial(simt, x, kernel_operands(x, w, None)[0], None)
+
+
 def all_cases():
     cases = unet_cases("serving", TILE_BATCH, (TILE,) * 3, N_CLASSES, False)
     cases.update(unet_cases("training", 1, TRAIN_SHAPE, TRAIN_CLASSES, True))
@@ -839,13 +882,9 @@ def check_kernels(seed):
     and must give the same bits."""
     import torch
 
-    from deepatlas_torch.kernels import (KERNELS, conv3d,
-                                         conv3d_k3_input_grad,
-                                         conv3d_k3_input_grad_plain, deconv3d)
-    from deepatlas_torch.kernels.conv3d import kernel_operands, strided_shape
-
-    simt_of = {"deconv2x": deconv3d._deconv_simt,
-               "conv3d_point": conv3d._point_simt}
+    from deepatlas_torch.kernels import (KERNELS, conv3d_k3_input_grad,
+                                         conv3d_k3_input_grad_plain)
+    from deepatlas_torch.kernels.conv3d import strided_shape
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "flops", "bytes",
@@ -944,9 +983,7 @@ def check_kernels(seed):
             # through its C entry point, on the same inputs
             simt = simt_ms = simt_dev_ms = None
             if name in CUDA_CORE_TWINS and dname == "bfloat16":
-                simt = functools.partial(simt_of[name], x,
-                                         kernel_operands(x, second, None)[0],
-                                         None)
+                simt = cuda_core_call(name, x, second)
                 simt_ms = cuda_ms(simt, reps=5)
                 simt_dev_ms = cuda_ms(simt, reps=5, queued=True)
             bms, bound_by = bound_ms(name, n, cin, cout, dname, n_out,
@@ -2054,6 +2091,22 @@ def run_main_path(seed, workdir):
     return counts
 
 
+def mindboggle_volume(rng, shape=MB_SHAPE):
+    """One synthetic MindBoggle-layout volume and its labels, drawn from
+    ``rng``: a 4 x 4 x 2 grid of blocks labelled 0..31 (block borders
+    jittered) whose intensity follows the label, plus noise."""
+    index = []
+    for n, blocks in zip(shape, (4, 4, 2)):
+        cuts = (np.arange(1, blocks) / blocks
+                + rng.uniform(-0.04, 0.04, blocks - 1)) * n
+        index.append(np.searchsorted(cuts, np.arange(n)))
+    seg = ((index[0][:, None, None] * 4 + index[1][None, :, None]) * 2
+           + index[2][None, None, :]).astype(np.uint8)
+    img = ((seg.astype(np.float32) + 1) / (TRAIN_CLASSES + 1)
+           + 0.005 * rng.standard_normal(shape).astype(np.float32))
+    return img, seg
+
+
 def write_mindboggle_corpus(root, seed, shape=MB_SHAPE,
                             n_train=N_TRAIN_VOLUMES):
     """Synthetic MindBoggle-layout corpus under ``root/mindboggle``: each
@@ -2072,15 +2125,7 @@ def write_mindboggle_corpus(root, seed, shape=MB_SHAPE,
     os.makedirs(seg_dir)
     names = [f"synth_{v}" for v in range(n_train + 1)]
     for name in names:
-        index = []
-        for n, blocks in zip(shape, (4, 4, 2)):
-            cuts = (np.arange(1, blocks) / blocks
-                    + rng.uniform(-0.04, 0.04, blocks - 1)) * n
-            index.append(np.searchsorted(cuts, np.arange(n)))
-        seg = ((index[0][:, None, None] * 4 + index[1][None, :, None]) * 2
-               + index[2][None, None, :]).astype(np.uint8)
-        img = ((seg.astype(np.float32) + 1) / (TRAIN_CLASSES + 1)
-               + 0.005 * rng.standard_normal(shape).astype(np.float32))
+        img, seg = mindboggle_volume(rng, shape)
         write_nifti(os.path.join(img_dir, f"{name}.nii.gz"), img)
         write_nifti(os.path.join(seg_dir, f"{name}.nii.gz"), seg)
     lists = {"MMRR-21-flip.txt": names[:n_train],
@@ -2129,12 +2174,14 @@ class StepRecorder:
     """Wraps an experiment's step factories to record, per training step,
     its loss (``loss_of`` the step's return value), its seconds
     (synchronised) and the kernels it launched, and per evaluated volume or
-    pair its launches."""
+    pair its launches.  With ``track_peak`` each step also records its peak
+    memory (the card's peak reset before it)."""
 
-    def __init__(self, loss_of=lambda out: float(out[1])):
+    def __init__(self, loss_of=lambda out: float(out[1]), track_peak=False):
         self.loss_of = loss_of
+        self.track_peak = track_peak
         self.losses, self.seconds, self.step_launches = [], [], []
-        self.eval_launches = []
+        self.eval_launches, self.peaks = [], []
         self.first_start = self.last_end = None
 
     def _delta(self, before):
@@ -2153,12 +2200,16 @@ class StepRecorder:
             def recorded(state, *tensors):
                 before = launch_counts()
                 torch.cuda.synchronize()
+                if self.track_peak:
+                    torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 if self.first_start is None:
                     self.first_start = t0
                 out = step(state, *tensors)
                 torch.cuda.synchronize()
                 self.last_end = time.perf_counter()
+                if self.track_peak:
+                    self.peaks.append(torch.cuda.max_memory_allocated())
                 self.seconds.append(self.last_end - t0)
                 self.losses.append(self.loss_of(out))
                 self.step_launches.append(self._delta(before))
@@ -2404,21 +2455,37 @@ def write_reg_corpus(root, seed, shape=MB_SHAPE, max_shift=3.0,
     two ordered pairs)."""
     from deepatlas_torch.data import write_nifti
 
-    rng = np.random.RandomState(seed)
     mb = os.path.join(root, "mindboggle")
     img_dir = os.path.join(mb, "image_in_MNI152_normalized")
     seg_dir = os.path.join(mb, "label_31_reID_merged")
     os.makedirs(img_dir)
     os.makedirs(seg_dir)
+    n_train = N_REG_TRAIN_VOLUMES
+    names = [f"synth_{v}" for v in range(n_train + N_REG_VALID_VOLUMES)]
+    for name, (img, seg) in zip(names, reg_volumes(seed, shape, max_shift,
+                                                   intensity)):
+        write_nifti(os.path.join(img_dir, f"{name}.nii.gz"), img)
+        write_nifti(os.path.join(seg_dir, f"{name}.nii.gz"), seg)
+    lists = {"MMRR-21-flip.txt": names[:n_train],
+             "NKI-RS-21-valid.txt": names[n_train:],
+             "NKI-RS-21-train.txt": names[n_train:]}
+    for fname, members in lists.items():
+        with open(os.path.join(mb, fname), "w") as f:
+            f.write("".join(f"{n}\n" for n in members))
+    return names
+
+
+def reg_volumes(seed, shape=MB_SHAPE, max_shift=3.0, intensity=0.3):
+    """The volumes of ``write_reg_corpus`` and their labels, in its order,
+    drawn one at a time."""
+    rng = np.random.RandomState(seed)
     # coordinates as fractions of each side, so that a cut-down shape (the
     # tests') has the same picture
     frac = np.meshgrid(*[np.arange(n, dtype=np.float32) / n for n in shape],
                        indexing="ij")
     waves = [(rng.uniform(5, 10, 3) * rng.choice([-1, 1], 3),
               rng.uniform(0, 2 * np.pi)) for _ in range(4)]
-    n_train = N_REG_TRAIN_VOLUMES
-    names = [f"synth_{v}" for v in range(n_train + N_REG_VALID_VOLUMES)]
-    for name in names:
+    while True:
         at = []
         for axis, n in enumerate(shape):
             k = rng.uniform(0.7, 1.6, 3)
@@ -2436,16 +2503,7 @@ def write_reg_corpus(root, seed, shape=MB_SHAPE, max_shift=3.0,
         index = [np.clip(np.floor(a * blocks), 0, blocks - 1).astype(np.int64)
                  for a, blocks in zip(at, (4, 4, 2))]
         seg = ((index[0] * 4 + index[1]) * 2 + index[2]).astype(np.uint8)
-        write_nifti(os.path.join(img_dir, f"{name}.nii.gz"),
-                    np.clip(img, 0, 1))
-        write_nifti(os.path.join(seg_dir, f"{name}.nii.gz"), seg)
-    lists = {"MMRR-21-flip.txt": names[:n_train],
-             "NKI-RS-21-valid.txt": names[n_train:],
-             "NKI-RS-21-train.txt": names[n_train:]}
-    for fname, members in lists.items():
-        with open(os.path.join(mb, fname), "w") as f:
-            f.write("".join(f"{n}\n" for n in members))
-    return names
+        yield np.clip(img, 0, 1), seg
 
 
 def reg_step_gradients(model, sim_loss, reg_loss, moving, fixed):
@@ -4395,14 +4453,749 @@ def run_parallel_path(seed, workdir):
     return launches
 
 
+# ------------------------------------------------------- rematerialization
+
+REMAT_STEPS = 8
+# steps of each side of the joint seg step and of the fixed UNet at half
+# the depth: the median of the warm ones (all but the first)
+REMAT_SHORT_STEPS = 4
+# the fixed UNet on OAI volumes through the seg experiment: remat on and
+# off at half the depth (held bit for bit), the whole depth with remat
+REMAT_HALF_DEPTH = OAI_SHAPE[0] // 2
+REMAT_WHOLE_DEPTH = OAI_SHAPE[0]
+REMAT_WHOLE_STEPS = 4
+# planes of a slab launch: with its two halo planes, its input stays below
+# 2^31 elements at the full-resolution concat's 192 channels
+REMAT_SLAB = 40
+# the whole-volume launches of the fixed UNet's step past 2^31 elements (or,
+# B, near it), each held against its launches on depth slabs: (kernel,
+# role, input channels, output channels); C reads the half resolution
+REMAT_KERNEL_CASES = (
+    ("conv3d_k3", "forward", 192, 64),      # the concat of 192 channels in
+    ("conv3d_k3", "dx", 64, 192),           # ... and its gradient out
+    ("conv3d_k3_wgrad", "wgrad", 192, 64),
+    ("deconv2x", "forward", 128, 128),      # 128 channels out
+    ("conv3d_point", "forward", 64, N_CLASSES),
+    ("conv3d_point", "dx", N_CLASSES, 64))
+
+
+def remat_extra(model):
+    """What ``remat`` adds to a training step's launches: one forward of
+    every ConvBlock and DeconvBlock that recomputes."""
+    from deepatlas_torch.models import layers
+
+    return {"conv3d_k3": sum(isinstance(m, layers.ConvBlock) and m.remat
+                             for m in model.modules()),
+            "deconv2x": sum(isinstance(m, layers.DeconvBlock) and m.remat
+                            for m in model.modules())}
+
+
+def differing(a, b):
+    """Names whose tensors differ in a bit, a shape or the type."""
+    import torch
+
+    return sorted(k for k in a if a[k].shape != b[k].shape
+                  or a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]))
+
+
+def snapshot(model, metrics):
+    """Copies of a step's metrics, the model's gradients and state."""
+    return {"metrics": {k: v.detach().clone() for k, v in metrics.items()},
+            "grads": {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "state": {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}}
+
+
+def differences(a, b):
+    """``differing`` of two snapshots, part by part (empty: equal)."""
+    out = {part: differing(a[part], b[part]) for part in a}
+    return {part: names for part, names in out.items() if names}
+
+
+def timed_steps(state, step, args, n, metrics_of):
+    """``n`` steps ``step(state, *args)`` from the state as given: the
+    seconds (synchronised) and launches of each, snapshots after the first
+    and the last, the peak memory over them."""
+    import torch
+
+    from deepatlas_torch.kernels import launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = {"seconds": [], "launches": []}
+    for i in range(n):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = step(state, *args)
+        torch.cuda.synchronize()
+        run["seconds"].append(time.perf_counter() - t0)
+        after = launch_counts()
+        run["launches"].append({k: after[k] - before[k] for k in after})
+        if i in (0, n - 1):
+            run["last"] = snapshot(state.model, metrics_of(out))
+            run.setdefault("first", run["last"])
+    run["peak"] = torch.cuda.max_memory_allocated()
+    return run
+
+
+def remat_summary(name, runs, want):
+    """The log entry of a remat-off / remat-on pair of ``timed_steps`` runs,
+    and its faults: a bit that differs after the first or the last step, a
+    step whose launches are not its table's, a remat peak not below the
+    plain one."""
+    entry, faults = {}, []
+    for remat, run in runs.items():
+        key = "remat" if remat else "plain"
+        warm = sorted(run["seconds"][1:] or run["seconds"])
+        entry[key] = {"step_s": run["seconds"],
+                      "step_s_median": warm[len(warm) // 2],
+                      "max_memory_allocated": run["peak"],
+                      "launches_per_step": run["launches"][0],
+                      "launches_expected": want[remat]}
+        bad = [i for i, got in enumerate(run["launches"])
+               if got != want[remat]]
+        if bad:
+            faults.append(f"{name} {key}: steps {bad} launched "
+                          f"{run['launches'][bad[0]]}, expected "
+                          f"{want[remat]}")
+    for which in ("first", "last"):
+        diff = differences(runs[False][which], runs[True][which])
+        entry[f"differs_after_{which}_step"] = diff
+        if diff:
+            faults.append(f"{name}: remat differs after the {which} step in "
+                          f"{diff}")
+    entry["peak_ratio"] = runs[True]["peak"] / runs[False]["peak"]
+    if not runs[True]["peak"] < runs[False]["peak"]:
+        faults.append(f"{name}: remat peak {runs[True]['peak']} not below "
+                      f"{runs[False]['peak']}")
+    return entry, faults
+
+
+def cropped(volume, crop=MB_CROP):
+    """The recipe's crop of a MindBoggle-layout volume."""
+    return volume[tuple(slice(c, n - e) for c, n, e in
+                        zip(crop[:3], volume.shape, crop[3:]))]
+
+
+def on_card(array, dtype=None):
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(array)[None])
+    return (t if dtype is None else t.to(dtype)).cuda()
+
+
+def remat_seg_part(seed):
+    """(a) UNet_light on train_seg.py's recipe: 8 steps with remat off and
+    on from one seeded state on one 168x200x168 volume; then the remat
+    net's serving forward of one tile batch."""
+    import torch
+
+    import train_seg_torch
+    from deepatlas_torch.kernels import launch_counts
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.models import get_network, resolve_model_settings
+    from deepatlas_torch.train import (TrainState, make_optimizer,
+                                       make_seg_train_step,
+                                       make_tile_predictor)
+
+    config = train_seg_torch.build_config(train_seg_torch.parse_args(
+        ["--data-root", "unused", "--device", "cuda"]))
+    img, seg = mindboggle_volume(np.random.RandomState(seed + 13))
+    x = on_card(cropped(img)[..., None])
+    y = on_card(cropped(seg), torch.int64)
+    step = make_seg_train_step(get_loss_function(config["loss"])(
+        **config["loss_settings"]))
+    runs, models = {}, {}
+    for remat in (False, True):
+        model = get_network(config["model"])(**resolve_model_settings(
+            config["model_settings"]), remat=remat)
+        model.load_state_dict(seeded_state(model, seed + 13))
+        model.cuda()
+        state = TrainState(model, make_optimizer(model,
+                                                 config["learning_rate"]))
+        runs[remat] = timed_steps(state, step, (x, y), REMAT_STEPS,
+                                  lambda out: {"loss": out[1]})
+        models[remat] = model
+    want = {False: STEP_LAUNCHES,
+            True: add_launches(STEP_LAUNCHES, remat_extra(models[True]))}
+    entry, faults = remat_summary("UNet_light", runs, want)
+    tiles = np.random.RandomState(seed).rand(
+        TILE_BATCH, TILE, TILE, TILE, 1).astype(np.float32)
+    before = launch_counts()
+    make_tile_predictor(models[True], TILE_BATCH)(tiles)
+    after = launch_counts()
+    entry["serving_launches"] = {k: after[k] - before[k] for k in after}
+    if entry["serving_launches"] != EVAL_LAUNCHES:
+        faults.append(f"UNet_light with remat serves one tile batch with "
+                      f"{entry['serving_launches']}, expected "
+                      f"{EVAL_LAUNCHES}")
+    entry.update(shape=TRAIN_SHAPE, n_classes=TRAIN_CLASSES,
+                 blocks_recomputed=remat_extra(models[True]))
+    return entry, faults
+
+
+def remat_reg_part(seed):
+    """(b) VoxelMorph on train_reg.py's recipe: 8 steps with remat off and
+    on from one seeded state on the first pair of the reg phase's
+    corpus."""
+    import train_reg_torch
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.models import get_network, resolve_model_settings
+    from deepatlas_torch.train import (TrainState, make_optimizer,
+                                       make_reg_train_step)
+
+    config = train_reg_torch.build_config(train_reg_torch.parse_args(
+        ["--data-root", "unused", "--device", "cuda"]))
+    volumes = reg_volumes(seed)
+    moving, fixed = (on_card(cropped(next(volumes)[0])[..., None])
+                     for _ in range(2))
+    runs, models = {}, {}
+    for remat in (False, True):
+        model = get_network(config["model"])(**resolve_model_settings(
+            config["model_settings"]), remat=remat)
+        model.load_state_dict(seeded_state(model, seed + 14))
+        model.cuda()
+        step = make_reg_train_step(
+            get_loss_function(config["loss"])(**config["loss_settings"]),
+            get_loss_function(config["reg_loss"])(
+                **config["reg_loss_settings"]),
+            config["reg_weight"], max_disp=model.max_disp)
+        state = TrainState(model, make_optimizer(model,
+                                                 config["learning_rate"]))
+        runs[remat] = timed_steps(state, step, (moving, fixed), REMAT_STEPS,
+                                  lambda out: out[1])
+        models[remat] = model
+    want = {False: REG_STEP_LAUNCHES,
+            True: add_launches(REG_STEP_LAUNCHES, remat_extra(models[True]))}
+    entry, faults = remat_summary("VoxelMorph", runs, want)
+    entry.update(shape=TRAIN_SHAPE,
+                 blocks_recomputed=remat_extra(models[True]))
+    return entry, faults
+
+
+def remat_joint_part(seed):
+    """(c) The joint experiment's seg step (train_deepatlas.py's recipe,
+    its steps built by the experiment) on one pair of the joint phase's
+    corpus, ``REMAT_SHORT_STEPS`` steps per label regime with
+    ``checkpoint_seg_apply`` off and on, each from the same seeded
+    state."""
+    import torch
+
+    import train_deepatlas_torch
+    from deepatlas_torch.train import DeepAtlasExperiment, TrainState
+    from deepatlas_torch.train.steps import make_optimizer
+
+    config = train_deepatlas_torch.build_config(
+        train_deepatlas_torch.parse_args(
+            ["--data-root", "unused", "--device", "cuda"]))
+    exp = DeepAtlasExperiment(config)
+    exp.setup_model()
+    exp.setup_loss()
+    exp._init_state()
+    start = {"seg": seeded_state(exp.seg_model, seed + 15),
+             "reg": seeded_state(exp.reg_model, seed + 16)}
+    volumes = reg_volumes(seed, intensity=JOINT_INTENSITY)
+    (m_img, m_seg), (f_img, f_seg) = next(volumes), next(volumes)
+    images = [on_card(cropped(v)[..., None]) for v in (m_img, f_img)]
+    labels = [on_card(cropped(v), torch.int64) for v in (m_seg, f_seg)]
+    # each of the step's two differentiated applies recomputes one forward
+    # of the whole net
+    extra = add_launches(EVAL_LAUNCHES, EVAL_LAUNCHES)
+    entry, faults = {}, []
+    for index, regime in enumerate(REGIMES):
+        flags = [torch.tensor([bool(index & 2)]),
+                 torch.tensor([bool(index & 1)])]
+        runs = {}
+        for on in (False, True):
+            exp.seg_model.load_state_dict(start["seg"])
+            exp.reg_model.load_state_dict(start["reg"])
+            exp.seg_state = TrainState(exp.seg_model, make_optimizer(
+                exp.seg_model, config["learning_rate"]))
+            exp.config["checkpoint_seg_apply"] = on
+            exp._build_steps()
+            runs[on] = timed_steps(
+                exp.seg_state,
+                lambda state, *t: exp.seg_step(state, exp.reg_state, *t),
+                (*images, *labels, *flags), REMAT_SHORT_STEPS,
+                lambda out: out[1])
+        plain = joint_seg_launches(regime)
+        part, bad = remat_summary(f"joint seg {regime}", runs,
+                                  {False: plain,
+                                   True: add_launches(plain, extra)})
+        entry[regime] = part
+        faults += bad
+    return entry, faults
+
+
+def remat_oai_config(workdir, depth, steps, remat):
+    """The seg CLI's config on the OAI corpus in ``workdir`` for the fixed
+    UNet (bias, BatchNorm, bf16) with 5 classes and ``remat``, whole
+    volumes cut to their middle ``depth`` planes, batch 1, ``steps``
+    steps and one validation."""
+    import train_seg_torch
+
+    config = train_seg_torch.build_config(train_seg_torch.parse_args(
+        ["--data-root", workdir, "--log-root", f"logs_{depth}_{remat}",
+         "--num-samples", "21", "--num-epochs", "1", "--preload",
+         "--device", "cuda"]))
+    cut = (OAI_SHAPE[0] - depth) // 2
+    config.update(
+        data="OAI", model="UNet", n_classes=N_CLASSES,
+        class_name={k: str(k) for k in range(1, N_CLASSES)},
+        model_settings=dict(config["model_settings"], n_classes=N_CLASSES,
+                            remat=remat),
+        loss_settings=dict(config["loss_settings"], n_class=N_CLASSES),
+        crop_size=[cut, 0, 0, cut, 0, 0] if cut else None, batch_size=1,
+        samples_per_epoch=steps, data_dir=workdir, valid_data_dir=workdir,
+        training_list_file=os.path.join(workdir, "train.txt"),
+        validation_list_file=os.path.join(workdir, "valid.txt"),
+        testing_list_file=os.path.join(workdir, "valid.txt"))
+    return config
+
+
+def remat_oai_run(workdir, depth, steps, remat):
+    """One seg experiment of ``remat_oai_config``: its recorder, the
+    model's snapshot after training and the experiment's seconds."""
+    import torch
+
+    from deepatlas_torch.train import SegmentationExperiment, segmentation
+
+    rec = StepRecorder(track_peak=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with contextlib.chdir(workdir), \
+            contextlib.redirect_stdout(io.StringIO()), \
+            mock.patch.object(segmentation, "make_seg_train_step",
+                              rec.train_factory(
+                                  segmentation.make_seg_train_step)):
+        exp = SegmentationExperiment(
+            remat_oai_config(workdir, depth, steps, remat))
+        exp.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    shot = snapshot(exp.model, {"loss": torch.tensor(rec.losses)})
+    extra = remat_extra(exp.model)
+    del exp
+    return rec, shot, extra, seconds
+
+
+def write_remat_corpus(workdir, seed):
+    """Two synthetic OAI volumes: one trains, one validates."""
+    names = write_corpus(workdir, seed + 17, n_volumes=2)
+    for list_name, part in (("train.txt", names[:1]),
+                            ("valid.txt", names[1:])):
+        with open(os.path.join(workdir, list_name), "w") as f:
+            f.write("\n".join(part) + "\n")
+
+
+def remat_half_part(workdir):
+    """(d) The fixed UNet through the seg experiment on a synthetic OAI
+    volume's middle ``REMAT_HALF_DEPTH`` planes: ``REMAT_SHORT_STEPS``
+    steps with remat off and as many with it on, bit for bit after the
+    last, the warm steps' median seconds, both peaks."""
+    entry, faults, shots = {}, [], {}
+    for remat in (False, True):
+        rec, shots[remat], extra, seconds = remat_oai_run(
+            workdir, REMAT_HALF_DEPTH, REMAT_SHORT_STEPS, remat)
+        want = add_launches(STEP_LAUNCHES, extra) if remat else STEP_LAUNCHES
+        key = "remat" if remat else "plain"
+        warm = sorted(rec.seconds[1:])
+        entry[f"half_{key}"] = {"losses": rec.losses,
+                                "step_s": rec.seconds,
+                                "step_s_median": warm[len(warm) // 2],
+                                "max_memory_allocated": max(rec.peaks),
+                                "launches_per_step": rec.step_launches[0],
+                                "launches_expected": want,
+                                "experiment_s": seconds}
+        if rec.step_launches != [want] * REMAT_SHORT_STEPS:
+            faults.append(f"UNet at {REMAT_HALF_DEPTH} planes {key}: "
+                          f"launched {rec.step_launches}, expected {want}")
+    diff = differences(shots[False], shots[True])
+    half = entry["half_plain"], entry["half_remat"]
+    entry["half_differs"] = diff
+    entry["half_peak_ratio"] = half[1]["max_memory_allocated"] / \
+        half[0]["max_memory_allocated"]
+    if diff:
+        faults.append(f"UNet at {REMAT_HALF_DEPTH} planes: remat differs in "
+                      f"{diff}")
+    if not half[1]["max_memory_allocated"] < half[0]["max_memory_allocated"]:
+        faults.append("UNet: the remat peak is not below the plain one")
+    entry.update(depth=REMAT_HALF_DEPTH, blocks_recomputed=extra)
+    return entry, faults
+
+
+# the whole volume fits one card with remat only under PyTorch's
+# expandable-segments allocator, whose segments grow in place: with the
+# default one, blocks reserved but unallocated between the step's tensors
+# run the step out of memory from 144 planes on, on "NVIDIA H100 80GB
+# HBM3, 700.00 W" (``python3 chip_smoke.py --remat-depths``).  A user sets
+# it in the environment, so the part runs in a process of its own with it
+# set.
+REMAT_WHOLE_ALLOC_CONF = "expandable_segments:True"
+
+
+def remat_child(workdir, depth, alloc_conf):
+    """``_remat_whole_child`` on ``depth`` planes in a process of its own,
+    with ``PYTORCH_CUDA_ALLOC_CONF`` set to ``alloc_conf`` (None: PyTorch's
+    default allocator): the finished process."""
+    env = dict(os.environ)
+    env.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+    if alloc_conf:
+        env["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    return subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--remat-whole", workdir, "--remat-depth",
+                           str(depth)], env=env, capture_output=True,
+                          text=True, timeout=600)
+
+
+def remat_whole_part(workdir, plain_half_peak):
+    """(d) ``REMAT_WHOLE_STEPS`` steps of the fixed UNet with remat through
+    the seg experiment on ``REMAT_WHOLE_DEPTH`` planes of an OAI volume
+    (all of them), in a child process (``remat_child``) under
+    ``REMAT_WHOLE_ALLOC_CONF``: finite losses, the step's median seconds
+    and peak.  The peak without remat is ``plain_half_peak`` scaled by
+    depth, and is marked so.  Returns the entry, the faults and the child's
+    launches."""
+    t0 = time.perf_counter()
+    out = remat_child(workdir, REMAT_WHOLE_DEPTH, REMAT_WHOLE_ALLOC_CONF)
+    if out.returncode:
+        raise AssertionError(f"the whole-volume remat child failed:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    entry = dict(child["entry"], process_s=time.perf_counter() - t0,
+                 alloc_conf=REMAT_WHOLE_ALLOC_CONF,
+                 plain_peak_scaled_from_half=plain_half_peak
+                 * REMAT_WHOLE_DEPTH / REMAT_HALF_DEPTH,
+                 plain_peak_is_scaled=True)
+    return entry, child["faults"], child["launches"]
+
+
+def _remat_whole_child(workdir, depth):
+    """The whole-volume part's process: the kernels as built, the seg
+    experiment's ``REMAT_WHOLE_STEPS`` remat steps on ``depth`` planes, one
+    JSON line with the entry, the faults and the launches."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launch_counts()
+    faults = []
+    rec, _, extra, seconds = remat_oai_run(workdir, depth,
+                                           REMAT_WHOLE_STEPS, True)
+    want = add_launches(STEP_LAUNCHES, extra)
+    warm = sorted(rec.seconds[1:])
+    entry = {
+        "depth": depth, "losses": rec.losses,
+        "step_s": rec.seconds, "step_s_median": warm[len(warm) // 2],
+        "max_memory_allocated": max(rec.peaks), "peaks": rec.peaks,
+        "max_memory_reserved": torch.cuda.max_memory_reserved(),
+        "card_bytes": torch.cuda.get_device_properties(0).total_memory,
+        "launches_per_step": rec.step_launches[0],
+        "launches_expected": want, "experiment_s": seconds}
+    if len(rec.losses) != REMAT_WHOLE_STEPS \
+            or not np.all(np.isfinite(rec.losses)):
+        faults.append(f"UNet whole volume: losses {rec.losses}")
+    if any(got != want for got in rec.step_launches):
+        faults.append(f"UNet whole volume: launched {rec.step_launches}, "
+                      f"expected {want}")
+    print(json.dumps({"entry": entry, "faults": faults,
+                      "launches": launch_counts()}), flush=True)
+    return 0
+
+
+def remat_depth_scan(seed, depths):
+    """How deep an OAI volume the fixed UNet trains on with remat on one
+    card: ``_remat_whole_child`` at each of ``depths`` under PyTorch's
+    default allocator and under ``REMAT_WHOLE_ALLOC_CONF``, one JSON line
+    each (a child that ran out of memory: its last error line)."""
+    print(nvidia_smi(), flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        write_remat_corpus(workdir, seed)
+        for alloc_conf in (None, REMAT_WHOLE_ALLOC_CONF):
+            for depth in depths:
+                out = remat_child(workdir, depth, alloc_conf)
+                row = {"depth": depth, "alloc_conf": alloc_conf,
+                       "rc": out.returncode}
+                if out.returncode == 0:
+                    row.update(json.loads(
+                        out.stdout.strip().splitlines()[-1])["entry"])
+                else:
+                    row["error"] = ([ln for ln in out.stderr.splitlines()
+                                     if "Error" in ln] or [""])[-1][:1000]
+                log(row)
+    return 0
+
+
+def run_remat_path(seed, workdir):
+    """Phase remat: per-block remat and the joint step's
+    ``checkpoint_seg_apply`` against the same steps without them, bit for
+    bit (loss, gradients, BatchNorm statistics, parameters), with launches
+    per step against the tables (remat adds one forward of every conv and
+    deconv block; ``checkpoint_seg_apply`` one forward of the seg net per
+    differentiated apply), times and peaks: (a) UNet_light and (b)
+    VoxelMorph on their recipes, (c) the joint seg step in each label
+    regime, (d) the fixed UNet through the seg experiment on OAI volumes,
+    at half the depth both ways and on the whole volume with remat."""
+    import torch
+
+    from deepatlas_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    write_remat_corpus(workdir, seed)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    faults = []
+    for name, part in (("unet_light", lambda: remat_seg_part(seed)),
+                       ("voxelmorph", lambda: remat_reg_part(seed)),
+                       ("joint_seg", lambda: remat_joint_part(seed)),
+                       ("unet_oai_half", lambda: remat_half_part(workdir))):
+        t1 = time.perf_counter()
+        entry, bad = part()
+        # each part's line as it ends: a later part may not
+        log({"phase": "remat", "part": name, **entry, "faults": bad,
+             "seconds": time.perf_counter() - t1})
+        faults += bad
+        # the experiments sit in reference cycles: collect them before
+        # their blocks can go back to the card
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    half_plain_peak = entry["half_plain"]["max_memory_allocated"]
+    # the whole volume needs all but about 1 GB of the card: this process
+    # holds only its context meanwhile
+    parent = {"parent_memory_reserved": torch.cuda.memory_reserved(),
+              "card_free_bytes_at_start": torch.cuda.mem_get_info()[0]}
+    entry, bad, child = remat_whole_part(workdir, half_plain_peak)
+    log({"phase": "remat", "part": "unet_oai_whole", **entry, **parent,
+         "faults": bad})
+    faults += bad
+    counts = add_launches(counts, child)
+    log({"phase": "remat", "launches": counts, "corpus_s": setup_s,
+         "seconds": time.perf_counter() - t0, "oai_shape": OAI_SHAPE,
+         "n_classes": N_CLASSES, "faults": faults})
+    if faults:
+        raise AssertionError("remat: " + "; ".join(faults))
+    return counts
+
+
+def halo_slab(t, start, n):
+    """Planes ``start - 1 .. start + n`` of ``t`` (batch 1), zero planes
+    past the volume's ends: a depth shard with one halo plane each side,
+    as a contiguous copy."""
+    import torch
+
+    zero = torch.zeros_like(t[:, :1])
+    lo = t[:, start - 1:start] if start > 0 else zero
+    hi = t[:, start + n:start + n + 1] if start + n < t.shape[1] else zero
+    return torch.cat([lo, t[:, start:start + n], hi], dim=1)
+
+
+def remat_kernel_case(kernel, role, cin, cout, dhw, gen, slab,
+                      device="cuda"):
+    """One whole-volume launch of ``REMAT_KERNEL_CASES`` on random inputs
+    and the same kernel on depth slabs of ``slab`` planes (C: of the half
+    resolution's ``slab // 2``).  Returns the full call, the plain one and
+    the library one on each slab, and ``compare()``: the full output
+    against the slabs' (A, B, C bit for bit; D: the full weight gradient
+    against the sum of the slabs', within ``TOL["float32"]``), and the
+    first slab's kernel output against its plain version."""
+    import torch
+
+    from deepatlas_torch.kernels import (KERNELS, conv3d_k3_input_grad,
+                                         conv3d_k3_input_grad_plain)
+
+    def rand(shape):
+        return (torch.rand(shape, generator=gen, device=device) * 2
+                - 1).to(torch.bfloat16)
+
+    def weights(shape, fan):
+        return torch.randn(shape, generator=gen, device=device) / np.sqrt(fan)
+
+    d, h, w = dhw
+    fn, plain = KERNELS[kernel]
+    starts = range(0, d, slab)
+    if kernel == "deconv2x":
+        x = rand((1, d // 2, h // 2, w // 2, cin))
+        wk = weights((2, 2, 2, cin, cout), cin)
+        full = lambda: fn(x, wk)
+        pieces = [((x[:, s // 2:(s + slab) // 2],), {}, slice(s, s + slab),
+                   slice(None)) for s in starts]
+    elif kernel == "conv3d_point":
+        x = rand((1, d, h, w, cin))
+        wk = weights((cin, cout), cin)
+        full = lambda: fn(x, wk)
+        pieces = [((x[:, s:s + slab],), {}, slice(s, s + slab), slice(None))
+                  for s in starts]
+    elif role == "dx":
+        # the stride-1 input gradient at depth padding 0 of a slab of the
+        # upstream gradient with its halo: its planes 2 .. slab + 1 are the
+        # full gradient's
+        x = rand((1, d, h, w, cin))
+        wk = weights((3, 3, 3, cout, cin), 27 * cin)
+        fn, plain = conv3d_k3_input_grad, conv3d_k3_input_grad_plain
+        full = lambda: fn(x, wk, dhw, 1)
+        pieces = [((halo_slab(x, s, slab),),
+                   {"dhw": (slab + 4, h, w), "stride": 1, "pad_d": 0},
+                   slice(s, s + slab), slice(2, slab + 2)) for s in starts]
+    else:
+        x = rand((1, d, h, w, cin))
+        if kernel == "conv3d_k3":
+            wk = weights((3, 3, 3, cin, cout), 27 * cin)
+            full = lambda: fn(x, wk)
+        else:
+            wk = rand((1, d, h, w, cout))     # the upstream gradient
+            full = lambda: fn(x, wk)
+        pieces = [((halo_slab(x, s, slab),), {"pad_d": 0},
+                   slice(s, s + slab), slice(None)) for s in starts]
+    if kernel == "conv3d_k3_wgrad":
+        calls = [((a[0], wk[:, s:s + slab]), kw, full_sl, own)
+                 for (a, kw, full_sl, own), s in zip(pieces, starts)]
+    else:
+        calls = [((a[0], wk), kw, full_sl, own)
+                 for a, kw, full_sl, own in pieces]
+
+    def compare():
+        out = full()
+        first = None
+        if kernel == "conv3d_k3_wgrad":
+            total = torch.zeros_like(out)
+            for i, (args, kw, _, _) in enumerate(calls):
+                got = fn(*args, **kw)
+                first = got if i == 0 else first
+                total += got
+            err = (total - out).abs().max().item()
+            equal = err <= TOL["float32"] * out.abs().max().item()
+        else:
+            equal, err = True, 0.0
+            for i, (args, kw, full_sl, own) in enumerate(calls):
+                got = fn(*args, **kw)[:, own]
+                first = got if i == 0 else first
+                ref = out[:, full_sl]
+                equal = equal and bool(torch.equal(got, ref))
+                err = max(err, (got.float() - ref.float()).abs().max().item())
+                del got, ref
+        args, kw, _, own = calls[0]
+        ref = plain(*args, **kw)[:, own] if kernel != "conv3d_k3_wgrad" \
+            else plain(*args, **kw)
+        plain_err = (first.float() - ref.float()).abs().max().item()
+        plain_scale = ref.float().abs().max().item()
+        return {"full_elements_in": x.numel(), "full_elements_out":
+                out.numel(), "equal_to_slabs": equal,
+                "max_abs_err_vs_slabs": err, "slabs": len(calls),
+                "max_abs_err_vs_plain": plain_err,
+                "max_abs_plain": plain_scale}
+
+    return x, wk, full, calls, compare
+
+
+def check_remat_kernels(summary, seed, dhw=OAI_SHAPE, slab=REMAT_SLAB,
+                        device="cuda"):
+    """Phase 3, the fixed UNet's training step on a whole OAI volume: A, B,
+    C and D at ``REMAT_KERNEL_CASES``, where A's input and output gradient
+    hold 4.53e9 elements and C's output 3.02e9 (past 2^31, where the plain
+    versions and cuDNN cannot run whole), each launch held against the
+    same kernel on depth slabs (``remat_kernel_case``) and its first slab
+    against the plain version; timed whole (``ms``, ``device_ms``), the
+    plain versions, cuDNN and B's and C's CUDA-core kernels summed over the
+    slabs.  Fills the path ``remat`` of ``summary``: one call of each
+    case."""
+    import torch
+
+    from deepatlas_torch.kernels import KERNELS
+
+    gen = torch.Generator(device=device).manual_seed(seed + 18)
+    for kernel, role, cin, cout in REMAT_KERNEL_CASES:
+        x, wk, full, calls, compare = remat_kernel_case(
+            kernel, role, cin, cout, dhw, gen, slab, device)
+        res = compare()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ms = cuda_ms(full, reps=2)
+        dev_ms = cuda_ms(full, reps=2, queued=True)
+        fn, plain = KERNELS[kernel]
+        if role == "dx" and kernel == "conv3d_k3":
+            from deepatlas_torch.kernels import conv3d_k3_input_grad_plain
+            plain = conv3d_k3_input_grad_plain
+        plain_ms = sum(cuda_ms(lambda: plain(*a, **kw), reps=1, warmup=0)
+                       for a, kw, _, _ in calls)
+        libs = [library_call(kernel, a[0], a[1], 1, kw.get("dhw"),
+                             kw.get("pad_d", 1)) for a, kw, _, _ in calls]
+        lib_ms = sum(cuda_ms(lib, reps=2) for lib in libs)
+        lib_dev_ms = sum(cuda_ms(lib, reps=2, queued=True) for lib in libs)
+        # the CUDA-core twin of B and C over the same slabs
+        simt_ms = simt_dev_ms = None
+        if kernel in CUDA_CORE_TWINS:
+            simts = [cuda_core_call(kernel, a[0], a[1])
+                     for a, _, _, _ in calls]
+            simt_ms = sum(cuda_ms(simt, reps=2) for simt in simts)
+            simt_dev_ms = sum(cuda_ms(simt, reps=2, queued=True)
+                              for simt in simts)
+            del simts
+        n = int(np.prod(dhw)) // (8 if kernel == "deconv2x" else 1)
+        bms, bound_by = bound_ms(kernel, n, cin, cout, "bfloat16")
+        flops, nbytes = work(kernel, n, cin, cout, "bfloat16")
+        tol = TOL["float32"] if kernel == "conv3d_k3_wgrad" \
+            else TOL["bfloat16"]
+        ok = res["equal_to_slabs"] and \
+            res["max_abs_err_vs_plain"] <= tol * res["max_abs_plain"]
+        partial = wgrad_partial_bytes("bfloat16", 1, dhw, cin, cout) \
+            if kernel == "conv3d_k3_wgrad" else None
+        log({"phase": "remat_kernels", "kernel": kernel, "role": role,
+             "x": list(x.shape), "cin": cin, "cout": cout, **res,
+             "wgrad_partial_bytes": partial,
+             "slab_planes": slab, "rel_tol_plain": tol, "ok": ok,
+             "kernel_ms": ms, "kernel_device_ms": dev_ms,
+             "plain_ms_over_slabs": plain_ms,
+             "library_ms_over_slabs": lib_ms,
+             "library_device_ms_over_slabs": lib_dev_ms,
+             "cuda_core_ms_over_slabs": simt_ms,
+             "cuda_core_device_ms_over_slabs": simt_dev_ms,
+             "bound_ms": bms, "bound_by": bound_by})
+        if not ok:
+            raise AssertionError(f"{kernel} {role} at {tuple(x.shape)}: "
+                                 f"{res}")
+        tot = summary[kernel]["remat"]
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bms),
+                         ("flops", flops), ("bytes", nbytes),
+                         ("device_ms", dev_ms),
+                         ("library_device_ms", lib_dev_ms),
+                         ("cuda_core_ms", simt_ms or 0.0),
+                         ("cuda_core_device_ms", simt_dev_ms or 0.0)):
+            tot[key] += val
+        summary[kernel]["max_abs_err"] = max(summary[kernel]["max_abs_err"],
+                                             res["max_abs_err_vs_plain"])
+        del x, wk, full, calls, compare, libs
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--nccl-cli", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--remat-whole", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--remat-depth", type=int, default=REMAT_WHOLE_DEPTH,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--remat-depths", type=int, nargs="+", default=None,
+                    help="only scan these OAI depths (even, at most 160) for "
+                         "the fixed UNet's remat step under both allocators")
     args = ap.parse_args(argv)
     if args.nccl_cli:
         # the parallel phase's NCCL child, started by torchrun
         return _nccl_cli(args.nccl_cli)
+    if args.remat_whole:
+        # the remat phase's whole-volume child
+        return _remat_whole_child(args.remat_whole, args.remat_depth)
 
     import torch
 
@@ -4419,6 +5212,8 @@ def main(argv=None):
     # every float32 reference in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.remat_depths:
+        return remat_depth_scan(args.seed, args.remat_depths)
     smi = nvidia_smi()
     print(smi, flush=True)
     log({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -4446,6 +5241,7 @@ def main(argv=None):
     check_warp_kernels(summary, args.seed)
     check_augment_field(summary, args.seed)
     apart = check_anatomy_kernels(summary, args.seed)
+    check_remat_kernels(summary, args.seed)
     convs = run_conv_tools()
 
     launches = {}
@@ -4455,7 +5251,8 @@ def main(argv=None):
                       ("unet_serving", run_unet_serving_path),
                       ("unet_training", run_unet_train_path),
                       ("oai_patch_training", run_oai_patch_path),
-                      ("parallel", run_parallel_path)):
+                      ("parallel", run_parallel_path),
+                      ("remat", run_remat_path)):
         with tempfile.TemporaryDirectory() as workdir:
             launches[path] = run(args.seed, workdir)
 
@@ -4521,7 +5318,7 @@ def main(argv=None):
                  "splat's one-hot stands in the kernels phase's line "
                  "joint_unit_with_f_hard_one_hot); matched_grid_grad, which "
                  "no main path launches, gives its time per call. launches "
-                 "are the seven main paths' runs, read when each returns; "
+                 "are the main paths' runs, read when each returns; "
                  "max_abs_err is the largest over every shape "
                  "and type; library_ms of warp_grid_grad and of "
                  "splat_trilinear is the same F.grid_sample backward call, "
@@ -4546,7 +5343,20 @@ def main(argv=None):
                  "rank 0's 80x200x168 shard and the spatial serving forward "
                  "of an 80x384x384 OAI shard (bfloat16), library_ms cuDNN "
                  "with depth padding 0; its launches are both ranks' of the "
-                 "parallel phase's gloo runs and the NCCL CLI's"})
+                 "parallel phase's gloo runs and the NCCL CLI's. "
+                 "'remat' holds A, B, C and D of the fixed UNet's step on "
+                 "a whole 160x384x384 OAI volume (bfloat16, 5 classes) "
+                 "over one call of each case of REMAT_KERNEL_CASES (A: "
+                 "the 192 -> 64 forward and its input gradient, D: that "
+                 "weight gradient, C: 128 -> 128 to full resolution, B: "
+                 "the head 64 -> 5 and its input gradient): ms and "
+                 "device_ms of the whole-volume launch, plain_ms, "
+                 "library_ms and library_device_ms summed over its "
+                 "40-plane depth slabs (no plain version or cuDNN call "
+                 "runs at the whole volume's 2^31-element tensors), "
+                 "cuda_core_ms and cuda_core_device_ms of B and C summed "
+                 "over the same slabs; its launches are the remat phase's "
+                 "runs"})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -26,7 +26,9 @@ dropped.  Variables arrive as nested dicts of arrays; only numpy is used.
 The JAX ``VoxelMorphCVPR2018`` likewise stores ``ConvBlock_0..9`` plus the
 flow head ``Conv_0`` (standard), or ``PackedConvBlock_0..4`` for the two
 shallow encoder convs, the two shallow decoder convs and the head, mixed
-with ``ConvBlock_0..5`` for the deep levels (packed).  Packed blocks keep
+with ``ConvBlock_0..5`` for the deep levels (packed); built with
+``remat=True`` its ``ConvBlock``s are ``CheckpointConvBlock``s in either
+tree, and the prefix is dropped as for the U-Net.  Packed blocks keep
 their kernels at the logical ``(3, 3, 3, Cin, Cout)`` shape (for a split
 skip input, the concatenation's), so nothing is unpacked.
 
@@ -176,13 +178,14 @@ _VM_PACKED = (["PackedConvBlock_0", "PackedConvBlock_1"]
 
 def voxelmorph_from_flax(variables: dict, model) -> Dict[str, torch.Tensor]:
     """State dict of ``model`` (a ``VoxelMorphCVPR2018``) from the JAX
-    VoxelMorph's ``{'params': ...}``, standard or packed tree.  The network
+    VoxelMorph's ``{'params': ...}``, standard or packed tree, with or
+    without remat.  The network
     has no BatchNorm, so the same call maps a gradient or an optimizer-moment
     tree.
 
     Raises ``ValueError`` when the tree does not fit the model.
     """
-    params = variables["params"]
+    params = _unremat(variables["params"])
     keys = set(params)
     for names in (_VM_STANDARD, _VM_PACKED):
         if set(names) == keys:

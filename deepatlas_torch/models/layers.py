@@ -18,15 +18,28 @@ Rounding points in bfloat16 follow the JAX packed blocks
 (``models/packed.py``): the conv output is rounded to bf16, the bias is
 added in bf16, the BatchNorm affine runs in bf16 with its scale and shift
 rounded to bf16, then the activation.
+
+Rematerialization (the JAX package's ``nn.remat`` on its blocks,
+``deepatlas_tpu/models/unet.py::_maybe_remat``): a block built with
+``remat=True`` keeps only its input for the backward pass in a
+differentiated train-mode forward and recomputes its interior there
+(``checkpointed``: the non-reentrant ``torch.utils.checkpoint``).  The
+recompute runs inside ``recomputing()``, where BatchNorm normalizes with
+the batch moments as on the first pass but leaves its running statistics
+alone, so they move once per forward, as under ``nn.remat``.  The kernels
+are deterministic, so the recomputed tensors, and with them the
+gradients, equal the stored ones bit for bit.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels import conv3d_k3, deconv2x
@@ -45,6 +58,44 @@ def get_activation(act: str) -> Callable:
             f"Not Implemented activation type {act}, only {list(table)} "
             f"are available now")
     return table[act]
+
+
+# depth of the checkpoint recomputes running on this thread (they may nest:
+# a whole network under ``checkpointed`` holds remat blocks).  Per thread:
+# the non-reentrant checkpoint enters ``context_fn``'s recompute context in
+# its unpack hook, on the thread that runs the backward (on the card the
+# autograd engine's own), and the recompute runs there, so a forward on
+# another thread meanwhile still moves its statistics.
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def _recompute():
+    _local.depth = getattr(_local, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _local.depth -= 1
+
+
+def recomputing() -> bool:
+    """True inside a checkpoint's recompute on this thread (see
+    ``checkpointed``)."""
+    return getattr(_local, "depth", 0) > 0
+
+
+def _recompute_context():
+    return contextlib.nullcontext(), _recompute()
+
+
+def checkpointed(fn: Callable, *args):
+    """``fn(*args)`` under the non-reentrant ``torch.utils.checkpoint``:
+    autograd keeps ``args`` and recomputes what ``fn`` saved when the
+    backward pass needs it, with ``recomputing()`` true.  The networks draw
+    no random numbers, so the RNG state is not saved."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, context_fn=_recompute_context,
+        preserve_rng_state=False)
 
 
 def glorot_normal_(w: torch.Tensor) -> torch.Tensor:
@@ -67,10 +118,12 @@ class BatchNorm(nn.Module):
     the compute-type input as ``var = max(E[x^2] - mean^2, 0)`` (the biased
     variance), and moves the running statistics by ``ra <- 0.9 ra + 0.1
     batch`` with that same biased variance (``torch.nn.BatchNorm3d`` would
-    store the unbiased one and counts its momentum the other way round).
-    The moments are plain tensor ops, so autograd differentiates through
-    them.  In both modes the scale ``mul`` and shift ``add`` are rounded to
-    the compute type and the map is ``x * mul + add``.
+    store the unbiased one and counts its momentum the other way round),
+    except in a checkpoint's recompute (``recomputing()``): the first pass
+    has moved them.  The moments are plain tensor ops, so autograd
+    differentiates through them.  In both modes the scale ``mul`` and
+    shift ``add`` are rounded to the compute type and the map is
+    ``x * mul + add``.
 
     With a ``spatial_axis`` of more than one shard, train mode sums the
     per-channel ``(sum x, sum x^2)`` over the shards in one differentiable
@@ -102,11 +155,12 @@ class BatchNorm(nn.Module):
                                    (xf * xf).sum(dim=(0, 1, 2, 3))], ax)
                 mean = s / n
                 var = (s2 / n - mean * mean).clamp(min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(
-                    mean, alpha=1 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(
-                    var, alpha=1 - self.momentum)
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.mul_(self.momentum).add_(
+                        mean, alpha=1 - self.momentum)
+                    self.running_var.mul_(self.momentum).add_(
+                        var, alpha=1 - self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         mul = self.weight * torch.rsqrt(var + self.eps)
@@ -115,12 +169,17 @@ class BatchNorm(nn.Module):
 
 
 class _Block(nn.Module):
-    """Kernel + bias + optional BatchNorm + activation."""
+    """Kernel + bias + optional BatchNorm + activation.  With ``remat`` a
+    differentiated train-mode forward runs under ``checkpointed``; under
+    ``torch.no_grad()`` or in eval mode the block runs once, as without.
+    The recompute runs on the ``spatial_axis`` of the first pass: the
+    steps leave ``use_spatial_axis`` before their backward."""
     spatial_axis = None
 
     def __init__(self, kernel_shape, features: int, use_bias: bool,
-                 batchnorm: bool, act: str):
+                 batchnorm: bool, act: str, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.weight = nn.Parameter(glorot_normal_(torch.empty(kernel_shape)))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.bn = BatchNorm(features) if batchnorm else None
@@ -130,6 +189,15 @@ class _Block(nn.Module):
         raise NotImplementedError
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.remat and train and torch.is_grad_enabled():
+            return checkpointed(self._forward_on, x, train, self.spatial_axis)
+        return self._forward(x, train)
+
+    def _forward_on(self, x: torch.Tensor, train: bool, axis) -> torch.Tensor:
+        with use_spatial_axis(self, axis):
+            return self._forward(x, train)
+
+    def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         y = self._op(x)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
@@ -146,9 +214,10 @@ class ConvBlock(_Block):
     stride-1 conv and an even-index subsample)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 batchnorm: bool = False, act: str = "ReLU", stride: int = 1):
+                 batchnorm: bool = False, act: str = "ReLU", stride: int = 1,
+                 remat: bool = False):
         super().__init__((3, 3, 3, in_features, features), features,
-                         use_bias, batchnorm, act)
+                         use_bias, batchnorm, act, remat)
         if stride not in (1, 2):
             raise ValueError(f"ConvBlock stride must be 1 or 2, got {stride}")
         self.stride = stride
@@ -173,9 +242,10 @@ class DeconvBlock(_Block):
     The kernel is ``(2, 2, 2, Cin, Cout)``."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 batchnorm: bool = False, act: str = "ReLU"):
+                 batchnorm: bool = False, act: str = "ReLU",
+                 remat: bool = False):
         super().__init__((2, 2, 2, in_features, features), features,
-                         use_bias, batchnorm, act)
+                         use_bias, batchnorm, act, remat)
 
     def _op(self, x):
         return deconv2x(x, self.weight)

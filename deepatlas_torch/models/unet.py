@@ -14,6 +14,12 @@ max-pool, concat, bias, BatchNorm and activation are plain torch ops.
 Inputs are channel-last ``(B, D, H, W, C)``; outputs are raw logits
 ``(B, D, H, W, n_classes)``.
 
+Rematerialization: ``remat=True`` (the JAX models' field of that name)
+sets ``remat`` on every ``ConvBlock`` and ``DeconvBlock`` (``layers``): a
+differentiated train-mode forward keeps each block's input only and
+recomputes the block in the backward pass.  The 1x1x1 head and the
+max-pools stay outside the recompute, as in the JAX package.
+
 Depth sharding: ``spatial_axis`` (a mesh ``Axis``, set for a forward by
 ``layers.use_spatial_axis``) runs the net on one depth shard, every k3 conv
 on kernel A with depth padding 0 behind a one-plane halo exchange,
@@ -57,14 +63,16 @@ class UNetTemplate(nn.Module):
     the last level ends in a 1x1x1 conv to ``n_classes``.
 
     ``dtype`` is the compute type (``torch.bfloat16`` or None for the
-    input's type); parameters stay float32.
+    input's type); parameters stay float32.  ``remat`` recomputes every
+    conv and deconv block in the backward pass (module docstring).
     """
     spatial_axis = None
 
     def __init__(self, encoders: Sequence[Sequence[int]],
                  decoders: Sequence[Sequence[int]], in_channel: int = 1,
                  n_classes: int = 2, bias: bool = False, BN: bool = False,
-                 act: str = "ReLU", dtype: Optional[torch.dtype] = None):
+                 act: str = "ReLU", dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
         self.encoders = tuple(tuple(p) for p in encoders)
         self.decoders = tuple(tuple(p) for p in decoders)
@@ -74,7 +82,8 @@ class UNetTemplate(nn.Module):
             raise ValueError("a U-Net has one decoder level per pooling")
 
         def cb(cin, f):
-            return ConvBlock(cin, f, use_bias=bias, batchnorm=BN, act=act)
+            return ConvBlock(cin, f, use_bias=bias, batchnorm=BN, act=act,
+                             remat=remat)
 
         self.enc = nn.ModuleList()
         cin = in_channel
@@ -91,7 +100,7 @@ class UNetTemplate(nn.Module):
         self.dec = nn.ModuleList()
         for j, plan in enumerate(self.decoders):
             self.ups.append(DeconvBlock(cin, plan[0], use_bias=bias,
-                                        batchnorm=BN, act=act))
+                                        batchnorm=BN, act=act, remat=remat))
             cin = plan[0] + skip_c[levels - 2 - j]
             level = nn.ModuleList()
             for f in plan[1:]:
@@ -132,7 +141,7 @@ UNET_DECODERS = ((512, 256, 256), (256, 128, 128), (128, 64, 64))
 
 class UNet(UNetTemplate):
     """The fixed 3-pool U-Net with ReLU activations; the JAX ``UNet``'s
-    keywords (``remat`` is not taken, as ``UNetTemplate`` takes none).
+    keywords.
 
     Its widest convs run kernel A at Cin 768 (the 512-channel up-conv
     concatenated with the 256-channel skip), kernel C at 512 -> 512.
@@ -142,10 +151,11 @@ class UNet(UNetTemplate):
 
     def __init__(self, in_channel: int = 1, n_classes: int = 2,
                  bias: bool = False, BN: bool = False,
-                 dtype: Optional[torch.dtype] = None, spatial_axis=None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False,
+                 spatial_axis=None):
         super().__init__(UNET_ENCODERS, UNET_DECODERS, in_channel=in_channel,
                          n_classes=n_classes, bias=bias, BN=BN, act="ReLU",
-                         dtype=dtype)
+                         dtype=dtype, remat=remat)
         if spatial_axis is not None:
             for m in self.modules():
                 if hasattr(m, "spatial_axis"):

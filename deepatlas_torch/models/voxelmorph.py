@@ -17,6 +17,11 @@ the packed trunk's ``packed_nearest_up2``), and the warp on the warp kernels
 (``kernels.grid_sample``).  Parameters of either JAX tree
 convert with ``convert.voxelmorph_from_flax``.
 
+Rematerialization: ``remat=True`` (the JAX model's field) sets ``remat`` on
+the ten ``ConvBlock``s of the encoder and decoder, the blocks the JAX trunk
+wraps in ``nn.remat``; the flow head (a plain conv there) and the warp stay
+outside the recompute.
+
 Depth sharding: with ``spatial_axis`` (a mesh ``Axis``, set for a forward by
 ``layers.use_spatial_axis``) every conv, the stride-2 encoder convs too,
 runs on kernel A with depth padding 0 behind a one-plane halo exchange
@@ -54,6 +59,8 @@ class VoxelMorphCVPR2018(nn.Module):
         warps unclamped.
       flow_scale: constant multiplier on the predicted displacement (1.0 =
         the reference semantics).
+      remat: recompute the encoder and decoder blocks in the backward pass
+        of a differentiated train-mode forward (module docstring).
     """
     spatial_axis = None
 
@@ -61,7 +68,8 @@ class VoxelMorphCVPR2018(nn.Module):
                  enc_filters: Sequence[int] = (16, 32, 32, 32, 32),
                  dec_filters: Sequence[int] = (32, 32, 32, 8, 8),
                  dtype: Optional[torch.dtype] = None,
-                 max_disp: Optional[int] = 8, flow_scale: float = 1.0):
+                 max_disp: Optional[int] = 8, flow_scale: float = 1.0,
+                 remat: bool = False):
         super().__init__()
         self.enc_filters = tuple(int(f) for f in enc_filters)
         self.dec_filters = tuple(int(f) for f in dec_filters)
@@ -76,11 +84,12 @@ class VoxelMorphCVPR2018(nn.Module):
         self.enc = nn.ModuleList()
         cin = input_channel
         for i, f in enumerate(e):
-            self.enc.append(ConvBlock(cin, f, stride=1 if i == 0 else 2))
+            self.enc.append(ConvBlock(cin, f, stride=1 if i == 0 else 2,
+                                      remat=remat))
             cin = f
         # decoder inputs: e5; cat(d1, e4); cat(d2, e3); cat(d3, e2); d4
         dec_in = (e[4], d[0] + e[3], d[1] + e[2], d[2] + e[1], d[3])
-        self.dec = nn.ModuleList(ConvBlock(ci, f)
+        self.dec = nn.ModuleList(ConvBlock(ci, f, remat=remat)
                                  for ci, f in zip(dec_in, d))
         self.head = ConvBlock(d[4] + e[0], output_channel, act="None")
 

@@ -34,8 +34,17 @@ each rank takes its own rows' label regime), ``spatial_shards`` splits each
 volume's depth (``parallel.spatial.make_spatial_joint_steps``: the soft
 path on the lncc / bendingEnergy / dice triple, the warps clamped at
 ``max_disp``, so the overflow guard only warns there).  Validation runs
-whole volumes on every rank.  ``checkpoint_seg_apply`` is rejected for
-good (see ``make_joint_seg_step``).
+whole volumes on every rank.
+
+``checkpoint_seg_apply`` (single process, and DP at a world of one: where
+the JAX experiment reads it) recomputes each differentiated seg forward in
+the backward pass (``make_joint_seg_step``'s ``checkpoint_apply``).  It is
+False when absent: the JAX default, ``not packed_seg``, follows the seg
+model's TPU lane packing, which the port has no counterpart for, and the
+JAX CLI packs the seg model unless ``--no-packed``, so its runs default to
+False.  The guard's ``xla`` action sets it to True where the config does
+not say, as the JAX guard does.  The networks' per-block ``remat`` comes
+with ``seg_model_settings`` / ``reg_model_settings``.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ from ..data.augment import fold_in, make_augmenter
 from ..kernels import grid_sample
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
+from ..parallel.collectives import axis_size
 from ..utils import visualize
 from .base import BaseExperiment, test_logger
 from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
@@ -80,10 +90,6 @@ ANATOMY_DTYPE = torch.bfloat16
 class DeepAtlasExperiment(BaseExperiment):
     def __init__(self, config):
         super().__init__(config)
-        if self.config.get("checkpoint_seg_apply"):
-            raise NotImplementedError(
-                "checkpoint_seg_apply is not ported: recomputing the seg "
-                "net's train-mode forward would update BatchNorm twice")
         self.device = resolve_device(self.config.get("device"))
         self.setup_parallel()
         if self.config.get("debug_mode"):
@@ -224,6 +230,8 @@ class DeepAtlasExperiment(BaseExperiment):
             self.seg_step = make_joint_seg_step(
                 self.sup_loss, weights[1], weights[2], n_class,
                 warp_fn=seg_warp_fn, anatomy_dtype=ANATOMY_DTYPE,
+                checkpoint_apply=axis_size(data_axis) == 1
+                and self.config.get("checkpoint_seg_apply", False),
                 hard_fused=self.config.get("hard_fused",
                                            max_disp is not None),
                 max_disp=max_disp, data_axis=data_axis)
@@ -289,6 +297,8 @@ class DeepAtlasExperiment(BaseExperiment):
             self._set_max_disp(None)
             self.config["fused_anatomy"] = False
             self.config["hard_fused"] = False
+            # the dense soft seg step holds the most: recompute its applies
+            self.config.setdefault("checkpoint_seg_apply", True)
         self._build_steps()
 
     def _set_max_disp(self, max_disp):

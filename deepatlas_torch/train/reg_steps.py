@@ -28,6 +28,7 @@ from ..kernels.anatomy import hard_anatomy_dice
 from ..kernels.warp import splat_trilinear
 from ..losses import soft_dice_on_probs
 from ..metrics import jacobian_determinant, multiclass_dice
+from ..models.layers import checkpointed
 from ..ops import (clamp_displacement, displacement_overflow, grid_sample,
                    one_hot, warp_labels)
 from ..parallel.collectives import (axis_size, batchnorm_stats, param_grads,
@@ -212,18 +213,16 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
 
     ``anatomy_dtype`` is the type of the one-hots and probabilities that are
     warped (float32 by default); the dice sums are float32.
-    ``checkpoint_apply`` (recomputing each forward in the backward) is not
-    ported: it would run BatchNorm in train mode twice and move the running
-    statistics twice.
+    ``checkpoint_apply`` runs each differentiated seg forward as one
+    checkpoint of the whole network (``models.layers.checkpointed``, the
+    JAX step's ``jax.checkpoint`` with ``nothing_saveable``): autograd keeps
+    the network's input only and the backward pass recomputes the forward,
+    in which BatchNorm leaves its running statistics alone.  The gradients,
+    statistics and metrics are those of the step without it, bit for bit.
 
     Returns ``(seg_state, reg_state, moving, fixed, moving_seg, fixed_seg,
     moving_has_label, fixed_has_label) -> (seg_state, metrics)`` with the
     detached scalars ``loss``, ``anatomy`` and ``supervised``."""
-    if checkpoint_apply:
-        raise NotImplementedError(
-            "checkpoint_apply is not ported: recomputing a train-mode "
-            "forward in the backward would update BatchNorm's running "
-            "statistics twice")
     if hard_fused and max_disp is None:
         raise ValueError("hard_fused requires max_disp (the matched-label "
                          "anatomy clamps the field first)")
@@ -236,7 +235,13 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
 
     def step(seg_state: TrainState, reg_state: TrainState, moving, fixed,
              moving_seg, fixed_seg, moving_has_label, fixed_has_label):
-        model = seg_state.model
+        net = seg_state.model
+
+        def model(images, train):
+            if checkpoint_apply:
+                return checkpointed(net, images, train)
+            return net(images, train=train)
+
         moving_seg, fixed_seg = moving_seg.long(), fixed_seg.long()
         with torch.no_grad():
             _, deform = reg_state.model.deformation(moving, fixed,
@@ -360,7 +365,7 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
         anat, sup_m, sup_f = branch()
         anat = anat.detach()
         sup = (sup_m.detach() * any_m + sup_f.detach() * any_f) / sup_norm
-        _dp_reduce(model, [anat, sup], data_axis)
+        _dp_reduce(net, [anat, sup], data_axis)
         seg_state.optimizer.step()
         seg_state.step += 1
         loss = anatomy_weight * anat + supervised_weight * sup

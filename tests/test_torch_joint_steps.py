@@ -263,8 +263,9 @@ def test_joint_seg_step_matches_jax(setup, regime, variant):
 
 def test_joint_seg_step_rejects_what_is_not_ported(setup):
     sup = get_loss_function("dice")(**SUP)
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        make_joint_seg_step(sup, ANAT_W, SUP_W, NC, checkpoint_apply=True)
+    # checkpoint_apply is ported (tests/test_torch_remat.py holds its step)
+    assert callable(make_joint_seg_step(sup, ANAT_W, SUP_W, NC,
+                                        checkpoint_apply=True))
     with pytest.raises(ValueError, match="max_disp"):
         make_joint_seg_step(sup, ANAT_W, SUP_W, NC, hard_fused=True)
     with pytest.raises(ValueError, match="max_disp"):

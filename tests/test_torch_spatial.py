@@ -266,6 +266,31 @@ def w_seg_step(sd, BN, x, labels, data):
     return float(loss), {k: v.numpy() for k, v in m.state_dict().items()}
 
 
+def w_seg_step_remat(sd, x, labels):
+    """One spatial seg step without and with remat on the same weights:
+    loss, gradients and state dict of each."""
+    from deepatlas_torch.losses import get_loss_function
+    from deepatlas_torch.parallel import (make_spatial_seg_step,
+                                          shard_volume_batch)
+    mesh = _mesh()
+    xs, ls = shard_volume_batch((x, labels), mesh)
+    out = []
+    for remat in (False, True):
+        m = seg_model(sd)
+        for blk in m.modules():
+            if hasattr(blk, "remat"):
+                blk.remat = remat
+        step = make_spatial_seg_step(
+            m, get_loss_function("dice"), N_CLASS, mesh,
+            criterion_kwargs=dict(weight_type="Uniform", softmax=True))
+        _, loss, _ = step(sgd_state(m), torch.from_numpy(xs),
+                          torch.from_numpy(ls))
+        out.append((loss.numpy(),
+                    {k: p.grad.numpy() for k, p in m.named_parameters()},
+                    {k: v.numpy() for k, v in m.state_dict().items()}))
+    return out
+
+
 def w_seg_eval(sd, x, labels):
     from deepatlas_torch.parallel import (make_spatial_seg_eval_step,
                                           shard_volume_batch)
@@ -441,6 +466,22 @@ def test_spatial_seg_step_matches_single_and_jax(ranks2):
                 jax_params_sd(js, UNetTemplate(bias=False, BN=True,
                                                **SEG_PLAN), unet_from_flax),
                 2e-5)
+
+
+def test_spatial_seg_step_with_remat_equals_without(ranks2):
+    """remat recomputes each block in the backward on the shard it ran on
+    (its halo exchange and its BatchNorm's all-reduce again, in the same
+    block order on every rank): loss, gradients, statistics and parameters
+    equal the step without remat bit for bit on both ranks."""
+    import jax.numpy as jnp
+    x, labels = seg_inputs(2)
+    _, _, sd = jax_seg(jnp.asarray(x[:1]))
+    for plain, remat in ranks2.run(w_seg_step_remat, sd, x, labels):
+        np.testing.assert_array_equal(plain[0], remat[0])
+        for a, b in zip(plain[1:], remat[1:]):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_spatial_seg_eval_matches_single_and_jax(ranks2):

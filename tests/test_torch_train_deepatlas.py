@@ -215,12 +215,13 @@ def test_unported_config_keys_and_missing_card_raise(corpus):
     with mock.patch.dict(os.environ, {"WORLD_SIZE": "2"}), \
             pytest.raises(ValueError, match="divisible by 2"):
         DeepAtlasExperiment({**config, "data_parallel": True, "batch_size": 1})
-    # the augmenter and image summaries are ported: accepted
+    # the augmenter, image summaries and the seg applies' recompute are
+    # ported: accepted
     for key, value in (("augmentation", {"rigid": {}}),
-                       ("image_summary", True)):
-        DeepAtlasExperiment({**config, key: value})
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        DeepAtlasExperiment({**config, "checkpoint_seg_apply": True})
+                       ("image_summary", True),
+                       ("checkpoint_seg_apply", True)):
+        assert DeepAtlasExperiment({**config, key: value}).config[key] \
+            == value
     for device in (None, "cuda"):
         with mock.patch.object(torch.cuda, "is_available",
                                return_value=False), \
