@@ -4,7 +4,9 @@ A prefetch thread plus an optional decode pool: ``num_workers`` threads run
 the per-sample NIfTI inflate/parse/preprocess concurrently, a bounded
 in-flight window keeps memory flat, and ordered collection keeps batches
 deterministic.  The iterator accounts the time the consumer spends blocked
-on ingest (``wait_seconds`` / ``wait_fraction``).
+on ingest (``wait_seconds`` / ``wait_fraction``); each sample's read is a
+``data.decode`` span (logged; no profiler marker on the loader's
+threads).
 
 Each iterator owns its collation buffer ring and its producer thread: two
 iterations of one loader never share buffers, and an iterator that is
@@ -21,6 +23,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
+
+from ..utils.profiling import annotate
 
 
 def auto_num_workers(batch_size: int) -> int:
@@ -131,25 +135,28 @@ class DataLoader:
         for b in range(len(self)):
             yield idx[b * self.batch_size:(b + 1) * self.batch_size]
 
+    def _decode(self, i: int):
+        with annotate("data.decode"):
+            return self.dataset[i]
+
     def _produce(self, collate: Callable):
         if self.num_workers <= 1:
             for batch_idx in self._batch_indices():
-                yield collate([self.dataset[int(i)] for i in batch_idx])
+                yield collate([self._decode(int(i)) for i in batch_idx])
             return
         # decode pool: per-sample futures over a bounded window, collected
         # in order (deterministic batches regardless of workers)
         window = self.num_workers + self.batch_size * max(self.prefetch, 1)
         flat = [int(i) for bi in self._batch_indices() for i in bi]
         with ThreadPoolExecutor(self.num_workers) as pool:
-            futs: deque = deque(pool.submit(self.dataset.__getitem__, i)
+            futs: deque = deque(pool.submit(self._decode, i)
                                 for i in flat[:window])
             pos = len(futs)
             batch: list = []
             while futs:
                 batch.append(futs.popleft().result())
                 if pos < len(flat):
-                    futs.append(pool.submit(self.dataset.__getitem__,
-                                            flat[pos]))
+                    futs.append(pool.submit(self._decode, flat[pos]))
                     pos += 1
                 if len(batch) == self.batch_size:
                     yield collate(batch)

@@ -34,6 +34,7 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 
+from ..utils.profiling import annotate
 from .nifti import NiftiImage
 
 
@@ -415,7 +416,9 @@ class Partition:
     ``tile_size`` / ``overlap_size`` are (D, H, W).  ``__call__`` pads the
     volume (reflect) to a whole tile grid and returns the stacked tiles;
     ``assemble`` reassembles per-tile predictions, either by stitching the
-    effective (non-overlap) centers or by per-label voting.
+    effective (non-overlap) centers or by per-label voting.  Spans:
+    ``tiling.pad`` (the padding), ``tiling.cut`` (the tiles and their
+    float32 copy), ``tiling.stitch`` (``assemble``).
     """
 
     def __init__(self, tile_size: Sequence[int], overlap_size: Sequence[int],
@@ -437,11 +440,12 @@ class Partition:
         pad = [(int(self.overlap_size[i]),
                 int(self.padded_size[i] - self.overlap_size[i]))
                for i in range(3)]
-        img_padded = np.pad(img, pad, mode=self.padding_mode)
-
-        tiles = self._extract_tiles(img_padded, self.tile_size)
-        sample = dict(sample)
-        sample["image"] = tiles[..., None].astype(np.float32)
+        with annotate("tiling.pad"):
+            img_padded = np.pad(img, pad, mode=self.padding_mode)
+        with annotate("tiling.cut"):
+            tiles = self._extract_tiles(img_padded, self.tile_size)
+            sample = dict(sample)
+            sample["image"] = tiles[..., None].astype(np.float32)
         return sample
 
     def _extract_tiles(self, padded, tile_size):
@@ -470,7 +474,11 @@ class Partition:
           crop_size: optional (h, w, d)-style border zeroing (the original
             reference's crop_size axis order).
         """
-        tiles = np.asarray(tiles)
+        with annotate("tiling.stitch"):
+            return self._assemble(np.asarray(tiles), is_vote, crop_size,
+                                  data_type)
+
+    def _assemble(self, tiles, is_vote, crop_size, data_type):
         g = self.tiles_grid_size
         e = self.effective_size
         o = self.overlap_size

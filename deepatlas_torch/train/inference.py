@@ -4,7 +4,10 @@
 fixed-size tile batches (the last chunk zero-padded, so every forward has
 the same shape), the per-voxel argmax runs on the device and only uint8
 labels return to the host, and ``Partition.assemble`` stitches the tiles
-back (center stitch or per-label voting).
+back (center stitch or per-label voting).  Each tile batch's spans:
+``tiling.copy_in`` (the upload), ``tiling.predict`` (the network),
+``tiling.copy_out`` (the argmax and the labels' copy, which waits on the
+network).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from ..data.transforms import Partition
 from ..metrics.confusion import confusion_matrix, dice_from_confusion
+from ..utils.profiling import annotate
 
 
 def _model_device(model: torch.nn.Module) -> torch.device:
@@ -37,11 +41,14 @@ def make_tile_predictor(model: torch.nn.Module, tile_batch: int = 4
         outs = []
         with torch.inference_mode():
             for i in range(0, tiles.shape[0], tile_batch):
-                x = torch.from_numpy(np.ascontiguousarray(
-                    tiles[i:i + tile_batch])).to(device)
-                logits = model(x, train=False)
-                outs.append(logits.argmax(dim=-1).to(torch.uint8).cpu()
-                            .numpy())
+                with annotate("tiling.copy_in"):
+                    x = torch.from_numpy(np.ascontiguousarray(
+                        tiles[i:i + tile_batch])).to(device)
+                with annotate("tiling.predict"):
+                    logits = model(x, train=False)
+                with annotate("tiling.copy_out"):
+                    outs.append(logits.argmax(dim=-1).to(torch.uint8).cpu()
+                                .numpy())
         return np.concatenate(outs)[:n]
 
     return predict

@@ -5,8 +5,13 @@ name and checkpoint-dir layout, MultiStep / plateau LR scheduling, periodic
 validation with per-class dice computed on the device, best-checkpoint
 tracking, scalars under the same tag names (into ``scalars.jsonl``, see
 ``train/base.py``), config snapshot, resume, a logging ``test()``, and the
-``profile_dir`` key: a ``torch.profiler`` trace of the second epoch, each
-training step a ``seg_train_step`` span.
+``profile_dir`` key: a ``torch.profiler`` trace of the second epoch.
+Each training step is an ``experiment.step`` span (``step.forward``,
+``step.loss`` and ``step.backward`` inside it, Adam's own marker after
+them), its copy to the device ``experiment.copy_in`` and the print
+period's scalars and summaries ``experiment.log`` (``utils/profiling.py``
+logs every span; the trace carries them).  The print period's rate is its
+samples over its seconds.
 
 OAI patch training: ``patch_size`` (D, H, W) draws one crop per training
 volume through ``RandomCrop`` (``sampler`` "random", ``patch_threshold``
@@ -46,7 +51,7 @@ from ..data.augment import make_augmenter
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
 from ..utils import visualize
-from ..utils.profiling import ThroughputMeter, annotate, trace
+from ..utils.profiling import annotate, trace
 from .base import BaseExperiment, ScalarWriter, test_logger
 from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
 from .schedules import make_scheduler, scheduler_from_restored
@@ -234,8 +239,10 @@ class SegmentationExperiment(BaseExperiment):
         """The batch's images and labels on the device; with ``local`` this
         rank's block of them (``local_batch``)."""
         cut = self.local_batch if local else (lambda x: x)
-        images = torch.from_numpy(cut(batch["image"])).to(self.device)
-        labels = torch.from_numpy(cut(batch["segmentation"])).to(self.device)
+        with annotate("experiment.copy_in"):
+            images = torch.from_numpy(cut(batch["image"])).to(self.device)
+            labels = torch.from_numpy(cut(batch["segmentation"])).to(
+                self.device)
         return images, labels
 
     # ------------------------------------------------------------- train
@@ -284,8 +291,7 @@ class SegmentationExperiment(BaseExperiment):
         period = self.config["print_batch_period"]
         iters_per_epoch = (self.config["samples_per_epoch"]
                            // self.config["batch_size"])
-        meter = ThroughputMeter(n_chips=1)
-        meter.start()
+        period_start = time.perf_counter()
         batch = logits = None
         for i in range(iters_per_epoch):
             batch = next(self._train_iter)
@@ -300,42 +306,48 @@ class SegmentationExperiment(BaseExperiment):
                     labels = self.local_batch(labels)
             else:
                 images, labels = self._to_device(batch, local=True)
-            with annotate("seg_train_step"):
+            with annotate("experiment.step"):
                 self.state, loss, logits = self.train_step(self.state,
                                                            images, labels)
             self.global_step = ((self.current_epoch - 1) * iters_per_epoch
                                 + (i + 1) * self.config["batch_size"])
             running_loss += float(loss)     # waits for the step
-            meter.step(volumes=self.config["batch_size"])
             if i % period == period - 1:
-                avg = running_loss / period if i > 0 else running_loss
-                print("Epoch[{}/{}] iter {} loss: {:.3f} lr:{} "
-                      "{:.3f} vol/s/chip {}".format(
-                          self.current_epoch, self.config["n_epochs"], i + 1,
-                          avg, self.scheduler.lr,
-                          meter.volumes_per_sec_per_chip,
-                          datetime.datetime.now().strftime("%D %H:%M:%S")))
-                self.writer.add_scalar("loss/training", avg,
-                                       global_step=self.global_step)
-                self.writer.add_scalar("learning_rate", self.scheduler.lr,
-                                       global_step=self.global_step)
-                self.writer.add_scalar(
-                    "throughput/ingest_wait_fraction",
-                    self.training_data_loader.wait_fraction,
-                    global_step=self.global_step)
-                self.writer.add_scalar("throughput/volumes_per_sec_per_chip",
-                                       meter.volumes_per_sec_per_chip,
-                                       global_step=self.global_step)
+                now = time.perf_counter()
+                seconds, period_start = now - period_start, now
+                rate = period * self.config["batch_size"] / seconds
+                with annotate("experiment.log"):
+                    avg = running_loss / period if i > 0 \
+                        else running_loss
+                    print("Epoch[{}/{}] iter {} loss: {:.3f} lr:{} "
+                          "{:.3f} vol/s/chip {}".format(
+                              self.current_epoch, self.config["n_epochs"],
+                              i + 1, avg, self.scheduler.lr, rate,
+                              datetime.datetime.now().strftime(
+                                  "%D %H:%M:%S")))
+                    self.writer.add_scalar("loss/training", avg,
+                                           global_step=self.global_step)
+                    self.writer.add_scalar("learning_rate",
+                                           self.scheduler.lr,
+                                           global_step=self.global_step)
+                    self.writer.add_scalar(
+                        "throughput/ingest_wait_fraction",
+                        self.training_data_loader.wait_fraction,
+                        global_step=self.global_step)
+                    self.writer.add_scalar(
+                        "throughput/volumes_per_sec_per_chip", rate,
+                        global_step=self.global_step)
                 running_loss = 0.0
 
         if (batch is not None and self.current_epoch
                 % self.config["save_ckpts_epoch_period"] == 0):
-            summary = visualize.make_segmentation_image_summary(
-                *summary_slices(self.local_batch(batch["image"]),
-                                self.local_batch(batch["segmentation"]),
-                                logits))
-            self.writer.add_image("training", summary,
-                                  global_step=self.global_step)
+            with annotate("experiment.log"):
+                summary = visualize.make_segmentation_image_summary(
+                    *summary_slices(self.local_batch(batch["image"]),
+                                    self.local_batch(batch["segmentation"]),
+                                    logits))
+                self.writer.add_image("training", summary,
+                                      global_step=self.global_step)
 
     # -------------------------------------------------------------- eval
     def eval(self, dataloader):

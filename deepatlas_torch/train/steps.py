@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..metrics import multiclass_dice
+from ..utils.profiling import annotate
 
 
 @dataclass
@@ -46,14 +47,18 @@ def make_seg_train_step(criterion: Callable):
     """Returns ``(state, images, labels) -> (state, loss, logits)``: forward
     with train-mode BatchNorm, the criterion on float32 logits, backward
     and one Adam update.  ``loss`` and ``logits`` are detached tensors on
-    the model's device."""
+    the model's device.  The step's spans: ``step.forward``, ``step.loss``,
+    ``step.backward`` (Adam carries torch's own marker)."""
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor):
         state.optimizer.zero_grad(set_to_none=True)
-        logits = state.model(images, train=True)
-        loss = criterion(logits.float(), labels)
-        loss.backward()
+        with annotate("step.forward"):
+            logits = state.model(images, train=True)
+        with annotate("step.loss"):
+            loss = criterion(logits.float(), labels)
+        with annotate("step.backward"):
+            loss.backward()
         state.optimizer.step()
         state.step += 1
         return state, loss.detach(), logits.detach()

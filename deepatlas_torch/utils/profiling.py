@@ -1,20 +1,28 @@
-"""Profiling and throughput observability (counterpart of
-``deepatlas_tpu/utils/profiling.py``).
+"""Profiling and spans (counterpart of ``deepatlas_tpu/utils/profiling.py``).
 
-  * ``trace`` / ``annotate`` -- a ``torch.profiler`` trace (host and, on a
-    card, device activity) written under a directory, and named spans in
-    it (``torch.profiler.record_function``).
+  * ``annotate`` -- a named span: its start and end on ``time.perf_counter``
+    go to one process-wide, bounded span log, read by ``spans_between``;
+    while ``torch.profiler`` records, a span on the main thread also opens
+    a ``record_function`` marker, so that the trace carries it.
+  * ``trace`` -- a ``torch.profiler`` trace (host and, on a card, device
+    activity) written under a directory.
   * ``device_memory_stats`` -- the card's allocator counters under the JAX
     package's names; ``{}`` for the CPU.
-  * ``ThroughputMeter`` -- steps/sec and volumes/sec/chip, EMA-smoothed.
   * ``sync`` -- wait for the work queued on a device.
+
+Span names are ``<layer>.<what>``: ``data.decode`` (mostly on the loader's
+threads), ``experiment.copy_in`` / ``.step`` / ``.log``, ``step.forward`` /
+``.loss`` / ``.backward``, ``tiling.pad`` / ``.cut`` / ``.stitch`` /
+``.copy_in`` / ``.predict`` / ``.copy_out``.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, Optional, Union
+from collections import deque
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -44,9 +52,54 @@ def trace(log_dir: str):
         yield prof
 
 
-def annotate(name: str):
-    """Named span in the profiler's timeline (a context manager)."""
-    return torch.profiler.record_function(name)
+# the span log: ``(name, start, end)`` of every closed span of every
+# thread, in the order they closed; the oldest drop out first
+SPAN_LOG_LENGTH = 2 ** 16
+_LOG: deque = deque(maxlen=SPAN_LOG_LENGTH)
+_MAIN = threading.main_thread()
+
+
+class annotate:
+    """A named span (a context manager, like ``torch.profiler``'s
+    ``record_function``; one use each).  It logs its start and end on
+    ``time.perf_counter`` (``spans_between``), and while the profiler
+    records it opens a ``record_function`` marker too -- on the main thread
+    only, which runs the steps and the serving calls: the trace's spans
+    name the device's idle gaps whatever thread they ran on, so a span of a
+    loader thread would take over the main thread's gaps.  It never waits
+    on the device."""
+    __slots__ = ("name", "start", "_marker")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._marker = None
+
+    def __enter__(self) -> "annotate":
+        if torch.autograd.profiler._is_profiler_enabled \
+                and threading.current_thread() is _MAIN:
+            self._marker = torch.profiler.record_function(self.name)
+            self._marker.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end = time.perf_counter()
+        if self._marker is not None:
+            self._marker.__exit__(*exc)
+            self._marker = None
+        _LOG.append((self.name, self.start, end))
+
+
+def spans_between(t0: float, t1: float
+                  ) -> Optional[List[Tuple[str, float, float]]]:
+    """The logged spans that started at or after ``t0`` and ended at or
+    before ``t1``, as ``(name, start, end)`` in the order they closed; None
+    where the log may have dropped such a span (it is full, and its oldest
+    span ended at or after ``t0``)."""
+    events = _LOG.copy()
+    if len(events) == events.maxlen and events[0][2] >= t0:
+        return None
+    return [e for e in events if e[1] >= t0 and e[2] <= t1]
 
 
 def device_memory_stats(device: Union[str, torch.device] = "cuda"
@@ -63,46 +116,3 @@ def device_memory_stats(device: Union[str, torch.device] = "cuda"
                                                0)),
             "bytes_limit": int(torch.cuda.get_device_properties(
                 device).total_memory)}
-
-
-class ThroughputMeter:
-    """steps/sec and volumes/sec/chip counters with EMA smoothing."""
-
-    def __init__(self, n_chips: int = 1, ema: float = 0.9):
-        self.n_chips = max(n_chips, 1)
-        self.ema = ema
-        self._last: Optional[float] = None
-        self._rate: Optional[float] = None
-        self.steps = 0
-        self.volumes = 0
-
-    def start(self) -> None:
-        self._last = time.perf_counter()
-
-    def step(self, volumes: int = 1) -> None:
-        """Record one completed step that processed ``volumes`` volumes."""
-        now = time.perf_counter()
-        self.steps += 1
-        self.volumes += volumes
-        if self._last is not None:
-            dt = now - self._last
-            if dt > 0:
-                rate = volumes / dt
-                self._rate = (rate if self._rate is None
-                              else self.ema * self._rate
-                              + (1 - self.ema) * rate)
-        self._last = now
-
-    @property
-    def volumes_per_sec(self) -> float:
-        return self._rate or 0.0
-
-    @property
-    def volumes_per_sec_per_chip(self) -> float:
-        return (self._rate or 0.0) / self.n_chips
-
-    def summary(self) -> Dict[str, float]:
-        return {"steps": self.steps, "volumes": self.volumes,
-                "volumes_per_sec": round(self.volumes_per_sec, 4),
-                "volumes_per_sec_per_chip":
-                    round(self.volumes_per_sec_per_chip, 4)}

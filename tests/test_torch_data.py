@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from deepatlas_tpu.data.nifti import read_nifti as jax_read_nifti
 from deepatlas_tpu.data.nifti import write_nifti as jax_write_nifti
 from deepatlas_tpu.data.transforms import Partition as JaxPartition
 from deepatlas_torch.data import DataLoader, Partition, read_nifti, write_nifti
+from deepatlas_torch.utils import spans_between
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -206,6 +208,19 @@ def test_loader_iterators_own_their_buffers():
     second.close()
     assert threading.active_count() == baseline
     assert [x["name"][0] for x in loader] == [f"s{i}" for i in range(6)]
+
+
+@pytest.mark.parametrize("num_workers", [1, 3])
+def test_loader_logs_one_decode_span_per_sample(num_workers):
+    """``data.decode`` once per sample read, on the producer thread or in
+    the decode pool."""
+    loader = DataLoader(_Samples(6), batch_size=2, prefetch=2,
+                        num_workers=num_workers)
+    t0 = time.perf_counter()
+    assert len(list(loader)) == 3
+    spans = [s for s in spans_between(t0, time.perf_counter())
+             if s[0] == "data.decode"]
+    assert len(spans) == 6
 
 
 def test_port_imports_no_jax():

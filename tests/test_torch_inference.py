@@ -7,6 +7,9 @@ rounding, so a label may differ only where the JAX logits' top-2 margin is
 below 1e-4; such voxels take the JAX label and the assembled volumes must
 then be identical, in center-stitch and in vote mode.
 """
+import time
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -21,11 +24,13 @@ from deepatlas_tpu.train.inference import (
     evaluate_sliding_window as jax_evaluate,
     make_tile_predictor as jax_tile_predictor,
     sliding_window_predict as jax_sliding_window)
+from deepatlas_torch.data import Partition
 from deepatlas_torch.metrics import confusion_matrix, dice_from_confusion
 from deepatlas_torch.models import UNetLight, unet_from_flax
 from deepatlas_torch.train import (evaluate_sliding_window,
                                    make_tile_predictor,
                                    sliding_window_predict)
+from deepatlas_torch.utils import spans_between
 from tests.test_torch_unet import randomize
 
 NC = 4
@@ -99,6 +104,27 @@ def test_evaluate_sliding_window_matches_jax(setup):
     assert names == ref_names and out.shape == (1, NC - 1)
     # labels may differ only at near-tie voxels: a few of 13440
     np.testing.assert_allclose(out, ref, atol=1e-3)
+
+
+def test_tiling_spans_per_volume_and_per_tile_batch(setup):
+    """Two volumes: one ``tiling.pad``, ``.cut`` and ``.stitch`` each, and
+    one ``tiling.copy_in``, ``.predict`` and ``.copy_out`` per tile
+    batch."""
+    vol, _, _, model, _ = setup
+    n_tiles = len(Partition(TILE, OVERLAP)({"image": vol})["image"])
+    batches = -(-n_tiles // BATCH)
+    predict = make_tile_predictor(model, BATCH)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        sliding_window_predict(predict, {"image": vol}, TILE, OVERLAP)
+    spans = spans_between(t0, time.perf_counter())
+    assert Counter(n for n, _, _ in spans if n.startswith("tiling.")) == {
+        "tiling.pad": 2, "tiling.cut": 2, "tiling.stitch": 2,
+        "tiling.copy_in": 2 * batches, "tiling.predict": 2 * batches,
+        "tiling.copy_out": 2 * batches}
+    order = [n for n, _, _ in spans if n.startswith("tiling.")]
+    assert order[:3] == ["tiling.pad", "tiling.cut", "tiling.copy_in"]
+    assert order[-1] == "tiling.stitch"
 
 
 def test_tile_predictor_pads_ragged_chunks(setup):

@@ -10,6 +10,8 @@ import json
 import os
 import subprocess
 import sys
+import time
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -17,10 +19,11 @@ import pytest
 import torch
 
 from deepatlas_tpu.train import schedules as jax_schedules
-from deepatlas_torch.data import NiftiImage, write_nifti
+from deepatlas_torch.data import NiftiImage, endless, write_nifti
 from deepatlas_torch.train import (SegmentationExperiment, initialize_from,
                                    load_checkpoint, make_scheduler,
                                    save_checkpoint, scheduler_from_restored)
+from deepatlas_torch.utils import spans_between
 
 import train_seg_torch
 
@@ -150,6 +153,37 @@ def test_training_learns_and_logs_the_reference_tags(trained_experiment):
     lrs = [s["value"] for s in scalars if s["tag"] == "learning_rate"]
     assert lrs == pytest.approx([1e-2, 1e-2, 2e-3, 2e-3])
     assert exp.state.optimizer.param_groups[0]["lr"] == pytest.approx(4e-4)
+
+
+def test_epoch_logs_the_experiment_and_step_spans(tmp_path):
+    """Per step one ``experiment.copy_in``, then one ``experiment.step``
+    holding ``step.forward``, ``step.loss`` and ``step.backward`` in turn;
+    ``experiment.log`` once per print period and once for the summary."""
+    names = [f"scan{i}" for i in range(2)]
+    make_mindboggle_corpus(tmp_path, names)
+    for list_name in ("train.txt", "valid.txt", "test.txt"):
+        (tmp_path / list_name).write_text("".join(f"{n}\n" for n in names))
+    exp = SegmentationExperiment(tiny_config(tmp_path))
+    exp.setup_train()
+    exp._init_state()
+    exp._train_iter = endless(exp.training_data_loader)
+    t0 = time.perf_counter()
+    exp.train_one_epoch()
+    spans = [s for s in spans_between(t0, time.perf_counter())
+             if not s[0].startswith("data.")]
+    exp.close()
+    steps = 4
+    assert Counter(n for n, _, _ in spans) == {
+        "experiment.copy_in": steps, "experiment.step": steps,
+        "step.forward": steps, "step.loss": steps, "step.backward": steps,
+        "experiment.log": steps // 2 + 1}
+    outer = [s for s in spans if s[0] == "experiment.step"]
+    for k, (_, s0, e0) in enumerate(outer):
+        inner = [s for s in spans if s[0].startswith("step.")
+                 and s0 <= s[1] and s[2] <= e0]
+        assert [n for n, _, _ in inner] == ["step.forward", "step.loss",
+                                            "step.backward"], k
+        assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
 
 
 def test_checkpoint_files_and_contents(trained_experiment):

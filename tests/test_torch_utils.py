@@ -79,21 +79,21 @@ def test_json_round_trips_across_packages(tmp_path, writer):
 def test_trace_annotate_and_memory_stats_on_the_cpu(tmp_path):
     log_dir = str(tmp_path / "trace")
     with trace(log_dir):
-        with annotate("seg_train_step"):
+        with annotate("experiment.step"):
             torch.ones(64).sum()
     files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
     assert len(files) == 1
     with open(files[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "seg_train_step" in names
+    assert "experiment.step" in names
     assert device_memory_stats("cpu") == {}
     assert device_memory_stats(torch.device("cpu")) == {}
 
 
 def test_seg_experiment_traces_its_second_epoch(tmp_path):
     """``profile_dir``: the seg experiment (here with the fixed UNet on the
-    CPU) writes a trace of its second epoch, one ``seg_train_step`` span per
-    step, as the JAX experiment does."""
+    CPU) writes a trace of its second epoch, one ``experiment.step`` span
+    per step, as the JAX experiment does."""
     rng = np.random.RandomState(3)
     names = [f"scan{i}" for i in range(2)]
     for sub in ("image_in_MNI152_normalized", "label_31_reID_merged"):
@@ -126,5 +126,5 @@ def test_seg_experiment_traces_its_second_epoch(tmp_path):
     assert len(files) == 1
     with open(files[0]) as f:
         spans = [e for e in json.load(f)["traceEvents"]
-                 if e.get("name") == "seg_train_step"]
+                 if e.get("name") == "experiment.step"]
     assert len(spans) == 2
