@@ -73,7 +73,13 @@ Phases (one JSON line each, any failure exits nonzero before the last line):
      on the CUDA cores) against its plain version and against the k3 conv
      kernel at UNet_light's 13 forward k3 shapes at 168x200x168, at p_blk
      2, 4 and 8 in both types, and at one odd small shape whose depths are
-     no multiple of p_blk (p_blk 1, 2, 3, 4 and 8).
+     no multiple of p_blk (p_blk 1, 2, 3, 4 and 8).  Block epilogue
+     (``csrc/block_epilogue.cu``: bias, BatchNorm and LeakyReLU after
+     every conv and deconv block) at UNet_light's 17 block outputs in
+     bfloat16: train mode forward and backward at the training step's
+     shapes, eval mode at the serving tile batch's (bit for bit), against
+     its plain version and a rerun, timed beside ``F.batch_norm`` +
+     ``F.leaky_relu``.
   4. main    -- the segmentation serving path: a synthetic OAI-ZIB corpus
      (160x384x384 volumes, labels 0..4, from ``--seed``), UNet_light with
      seeded weights and BatchNorm statistics saved as a checkpoint, and
@@ -240,6 +246,7 @@ import argparse
 import contextlib
 import functools
 import gc
+import importlib
 import io
 import json
 import os
@@ -283,6 +290,9 @@ KERNEL_INFO = {
                           "deepatlas_tpu/pallas/anatomy.py:213"),
     "conv3d_k3_block": ("deepatlas_torch/kernels/csrc/conv3d_mma.cu",
                         "deepatlas_tpu/pallas/conv3d.py:273"),
+    # no TPU kernel: XLA fused the blocks' bias, BatchNorm and activation
+    "block_epilogue": ("deepatlas_torch/kernels/csrc/block_epilogue.cu",
+                       None),
 }
 # the kernels whose source the tensor's type picks: the tensor cores in
 # bfloat16 (every main path), the CUDA cores in float32
@@ -402,11 +412,23 @@ TRAIN_SHAPE = tuple(MB_SHAPE[i] - MB_CROP[i] - MB_CROP[i + 3]
 TRAIN_CLASSES = 32
 N_TRAIN_VOLUMES = 4
 TRAIN_STEPS = 42
-# launches of one training step / one evaluated volume
+# launches of one training step / one evaluated volume; the 17 conv and
+# deconv blocks' epilogues (bias and BatchNorm) launch 3 kernels forward
+# and 4 backward each in train mode (the fourth sums the bias's gradient),
+# 2 in eval mode
 NO_LAUNCHES = dict.fromkeys(KERNEL_INFO, 0)
+N_UNET_BLOCKS = 17
 STEP_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=27, deconv2x=3, conv3d_point=2,
-                     conv3d_k3_wgrad=14)
-EVAL_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=14, deconv2x=3, conv3d_point=1)
+                     conv3d_k3_wgrad=14, block_epilogue=7 * N_UNET_BLOCKS)
+EVAL_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=14, deconv2x=3, conv3d_point=1,
+                     block_epilogue=2 * N_UNET_BLOCKS)
+# one train-mode forward of the net (a whole-net checkpoint's recompute)
+TRAIN_FORWARD_LAUNCHES = dict(EVAL_LAUNCHES,
+                              block_epilogue=3 * N_UNET_BLOCKS)
+# a depth-sharded training step: each epilogue's moments and its
+# backward's sums cross the shards through one more kernel each way
+SPATIAL_STEP_LAUNCHES = dict(STEP_LAUNCHES,
+                             block_epilogue=9 * N_UNET_BLOCKS)
 
 # the registration recipe of train_reg_torch.py
 REG_ENC = (16, 32, 32, 32, 32)
@@ -418,12 +440,15 @@ N_REG_VALID_VOLUMES = 2
 # 10 input gradients (the first conv's input is data), 11 weight gradients,
 # the decoder's upsample to full resolution on the transposed-conv kernel
 # (its backward is a matrix product), the warp and its grid gradient; the
-# moving image needs no gradient, so no splat
+# moving image needs no gradient, so no splat.  The 11 conv blocks'
+# epilogues (bias and activation, no BatchNorm) launch 1 kernel forward and
+# 2 backward each (dx with the bias's partial sums, then the sums)
+N_REG_BLOCKS = 11
 REG_STEP_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=21, deconv2x=1,
                          conv3d_k3_wgrad=11, warp_trilinear=1,
-                         warp_grid_grad=1)
+                         warp_grid_grad=1, block_epilogue=3 * N_REG_BLOCKS)
 REG_EVAL_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=11, deconv2x=1,
-                         warp_trilinear=1)
+                         warp_trilinear=1, block_epilogue=N_REG_BLOCKS)
 
 # the joint recipe of train_deepatlas_torch.py: 2 of the 4 training volumes
 # labelled, so the 12 ordered pairs hold 2 hard, 4 m-hard, 4 f-hard and 2
@@ -451,7 +476,8 @@ def add_launches(*tables):
 
 # the frozen reg net's deformation in a seg step: VoxelMorph's forward
 # convs and its upsample, no warp (the seg phase warps anatomies only)
-REG_FORWARD_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=11, deconv2x=1)
+REG_FORWARD_LAUNCHES = dict(NO_LAUNCHES, conv3d_k3=11, deconv2x=1,
+                            block_epilogue=N_REG_BLOCKS)
 # the anatomy of a seg step by branch (hard_fused): soft warps the moving
 # probabilities (C = 32) and splats their gradient; f_hard splats the fixed
 # one-hot (C = 32) and warps nothing; m_hard warps the moving one-hot once,
@@ -1064,6 +1090,177 @@ def check_upsample(seed):
             raise AssertionError(f"nearest_up2x {dtype} differs from "
                                  f"nearest_resize at {tuple(x.shape)}")
         del x
+    torch.cuda.empty_cache()
+
+
+# UNet_light's 17 conv and deconv blocks in forward order: (pooling level,
+# output channels); the epilogue runs on each block's output
+UNET_LIGHT_BLOCKS = ((0, 8), (0, 16), (1, 16), (1, 32), (2, 32), (2, 64),
+                     (3, 64), (3, 64), (2, 64), (2, 64), (2, 64), (1, 64),
+                     (1, 32), (1, 32), (0, 32), (0, 16), (0, 16))
+# bytes an element of the epilogue's passes in bfloat16: train mode reads y
+# (moments), reads y and writes out (apply), then reads g and y (reduce),
+# reads g and y and writes dx (apply, which sums dx for the bias in
+# registers); eval mode reads y and writes out
+EPILOGUE_BYTES = {"train": 16, "eval": 4}
+# flops an element: the bias, the affine and the activation each way, the
+# two sums, the closed-form dx
+EPILOGUE_FLOPS = {"train": 16, "eval": 4}
+
+
+def epilogue_cases():
+    """``{(path, batch, dhw, channels): blocks per unit}``: the epilogue's
+    tensors in one training step of UNet_light at 168x200x168 (train mode,
+    forward and backward) and in one serving tile batch of 4 x 128^3 (eval
+    mode, forward)."""
+    cases = {}
+    for path, batch, dhw in (("training", 1, TRAIN_SHAPE),
+                             ("serving", TILE_BATCH, (TILE,) * 3)):
+        for level, c in UNET_LIGHT_BLOCKS:
+            key = (path, batch, tuple(n >> level for n in dhw), c)
+            cases[key] = cases.get(key, 0) + 1
+    return cases
+
+
+def check_epilogue(summary, seed):
+    """Phase 3, the block epilogue (bias, BatchNorm, LeakyReLU) at every
+    block shape of UNet_light's training step and serving tile batch, in
+    bfloat16 (both paths' type): against the plain version -- eval mode
+    bit for bit, train mode to one flipped rounding of the scale or shift
+    (``TOL``), the backward kernels against the plain backward on the
+    kernels' own statistics (the plain ones may move a z that lies within a
+    rounding of 0 across LeakyReLU's kink) to one bf16 rounding of dy's
+    largest entry and of the per-channel gradients' (sums in bf16, added in
+    another order; the bias in front of the BatchNorm, a sum of dx, against
+    the sum of |dx|) -- and a rerun bit for bit.  Times the kernels, the
+    plain version and ``F.batch_norm`` + ``F.leaky_relu`` (the library's
+    call, on the channel-last tensor; no path of the port calls it) per
+    unit: forward and backward in train mode for the training step, the
+    eval forward for the serving tile batch.  Fills
+    ``summary["block_epilogue"]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepatlas_torch.kernels import block_epilogue, block_epilogue_plain
+    from deepatlas_torch.models.layers import BatchNorm
+
+    epilogue = importlib.import_module(
+        "deepatlas_torch.kernels.block_epilogue")
+
+    device = "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+    voxels = (0, 1, 2, 3)
+    for (path, batch, size, c), per_unit in epilogue_cases().items():
+        mode = "train" if path == "training" else "eval"
+        shape = (batch,) + size + (c,)
+        y = (torch.randn(shape, generator=gen, device=device) * 1.5
+             + 0.4).to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16)
+        bias = (torch.randn((c,), generator=gen, device=device) * 0.3)
+        bn = BatchNorm(c).to(device)
+        with torch.no_grad():
+            bn.weight.copy_(1 + 0.3 * torch.randn((c,), generator=gen,
+                                                  device=device))
+            bn.bias.copy_(0.3 * torch.randn((c,), generator=gen,
+                                            device=device))
+            bn.running_var.uniform_(0.5, 1.5, generator=gen)
+        bias.requires_grad_()
+
+        def call(fn, train=mode == "train", backward=mode == "train"):
+            yy = y.detach().requires_grad_(backward)
+            bias.grad = bn.weight.grad = bn.bias.grad = None
+            out = fn(yy, bias, bn, "LeakyReLU", train)
+            if not backward:
+                return out.detach(), []
+            out.backward(g)
+            return out.detach(), [yy.grad, bias.grad, bn.weight.grad,
+                                  bn.bias.grad]
+
+        state = {k: v.clone() for k, v in bn.state_dict().items()}
+        got = call(block_epilogue)
+        bn.load_state_dict(state)
+        again = call(block_epilogue)
+        bn.load_state_dict(state)
+        ref = call(block_epilogue_plain)
+        bn.load_state_dict(state)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in
+                     zip([got[0], *got[1]], [again[0], *again[1]]))
+        scale = ref[0].float().abs().max().item()
+        err = (got[0].float() - ref[0].float()).abs().max().item()
+        errs = {"out": err / scale}
+        ok = repeat and err <= TOL["bfloat16"] * scale
+        if mode == "eval":
+            ok = ok and bool(torch.equal(got[0], ref[0]))
+        del got, again, ref
+        if mode == "train":
+            spec = epilogue._Spec(bn, "LeakyReLU", True, False, None, False)
+            with torch.no_grad():
+                _, stats = epilogue._forward_cuda(y, bias, bn.weight,
+                                                  bn.bias, spec)
+                args = (g, y, bias, bn.weight, stats, spec, (True,) * 4)
+                kern = epilogue._backward_cuda(*args)
+                math = epilogue._backward_math(*args)
+            for name, a, b in zip(("dy", "dbias", "dweight", "dshift"),
+                                  kern, math):
+                ref_scale = math[0].float().abs().sum(dim=voxels).max() \
+                    .item() if name == "dbias" \
+                    else b.float().abs().max().item()
+                errs[name] = (a.float() - b.float()).abs().max().item() \
+                    / ref_scale
+                ok = ok and errs[name] <= 2 ** -7
+            del kern, math, stats
+        # the library's BatchNorm and activation on the same channel-last
+        # tensor, viewed as (B, C, D, H, W)
+        rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+
+        def library():
+            yy = y.permute(0, 4, 1, 2, 3).detach().requires_grad_(
+                mode == "train")
+            out = F.leaky_relu(F.batch_norm(
+                yy, rm, rv, bn.weight, bn.bias, training=mode == "train",
+                momentum=0.1, eps=bn.eps), 0.01)
+            if mode == "train":
+                out.backward(g.permute(0, 4, 1, 2, 3))
+
+        reps = 3 if y.numel() > 1e8 else 5
+        grad_ctx = torch.enable_grad if mode == "train" else torch.no_grad
+        with grad_ctx():
+            ms = cuda_ms(lambda: call(block_epilogue), reps=reps)
+            dev_ms = cuda_ms(lambda: call(block_epilogue), reps=reps,
+                             queued=True)
+            plain_ms = cuda_ms(lambda: call(block_epilogue_plain), reps=2)
+            lib_ms = cuda_ms(library, reps=reps)
+            lib_dev_ms = cuda_ms(library, reps=reps, queued=True)
+        n = y.numel()
+        nbytes, flops = EPILOGUE_BYTES[mode] * n, EPILOGUE_FLOPS[mode] * n
+        bms = nbytes / HBM_BYTES_PER_S * 1e3
+        log({"phase": "kernels", "path": path, "kernel": "block_epilogue",
+             "role": f"{mode} (bias, BatchNorm, LeakyReLU)",
+             "dtype": "bfloat16", "x": list(shape), "channels": c,
+             "launches_per_unit": per_unit,
+             "source": KERNEL_INFO["block_epilogue"][0],
+             "rel_err": errs, "rel_tol": TOL["bfloat16"],
+             "rel_tol_backward": 2 ** -7,
+             "eval_bit_identical": mode == "eval" and ok,
+             "bit_identical_rerun": repeat, "ok": ok, "kernel_ms": ms,
+             "kernel_device_ms": dev_ms, "plain_ms": plain_ms,
+             "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+             "bound_ms": bms, "bound_by": "bytes", "bytes": nbytes})
+        if not ok:
+            raise AssertionError(f"block_epilogue {mode} {shape}: rel_err "
+                                 f"{errs}, rerun equal {repeat}")
+        tot = summary["block_epilogue"]
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        for upath, times in unit_counts(path, mode, per_unit):
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bound_ms", bms),
+                             ("flops", flops), ("bytes", nbytes),
+                             ("device_ms", dev_ms),
+                             ("library_device_ms", lib_dev_ms)):
+                tot[upath][key] += times * val
+        del y, g, bn, bias
     torch.cuda.empty_cache()
 
 
@@ -2151,6 +2348,9 @@ PLAIN_OF = {
     "matched_warp": (("anatomy", "_matched_cuda", "_matched_math"),),
     "matched_warp_fused": (("anatomy", "_fused_cuda", "_fused_math"),),
     "matched_grid_grad": (("anatomy", "_grid_grad_cuda", "_grid_grad_math"),),
+    "block_epilogue": (("block_epilogue", "_forward_cuda", "_forward_math"),
+                       ("block_epilogue", "_backward_cuda",
+                        "_backward_math")),
 }
 
 
@@ -2159,12 +2359,13 @@ def plain_math(names=None):
     """Run the wrappers' autograd Functions on the plain versions' math on
     the card (for the comparison only: nothing in the port does this):
     every kernel's, or only those of the kernels ``names``."""
-    from deepatlas_torch import kernels
-
     with contextlib.ExitStack() as stack:
         for name in PLAIN_OF if names is None else names:
             for module, launcher, plain in PLAIN_OF[name]:
-                mod = getattr(kernels, module)
+                # by import: the package's name block_epilogue is the
+                # wrapper's, not its module's
+                mod = importlib.import_module(
+                    f"deepatlas_torch.kernels.{module}")
                 stack.enter_context(mock.patch.object(
                     mod, launcher, getattr(mod, plain)))
         yield
@@ -4204,8 +4405,8 @@ def run_parallel_path(seed, workdir):
     want = {
         "spatial_serving": [EVAL_LAUNCHES] * PAR_RANKS,
         "spatial_training": [{k: PAR_TRAIN_STEPS * v for k, v in
-                              STEP_LAUNCHES.items()}] * PAR_RANKS,
-        "spatial_training_f32": [STEP_LAUNCHES] * PAR_RANKS,
+                              SPATIAL_STEP_LAUNCHES.items()}] * PAR_RANKS,
+        "spatial_training_f32": [SPATIAL_STEP_LAUNCHES] * PAR_RANKS,
         "spatial_registration": [REG_STEP_LAUNCHES] * PAR_RANKS,
         "dp_seg": [STEP_LAUNCHES] * PAR_RANKS,
         "dp_joint": [add_launches(
@@ -4481,13 +4682,18 @@ REMAT_KERNEL_CASES = (
 
 def remat_extra(model):
     """What ``remat`` adds to a training step's launches: one forward of
-    every ConvBlock and DeconvBlock that recomputes."""
+    every ConvBlock and DeconvBlock that recomputes, its epilogue's too (3
+    kernels with a BatchNorm in train mode, 1 without)."""
     from deepatlas_torch.models import layers
 
-    return {"conv3d_k3": sum(isinstance(m, layers.ConvBlock) and m.remat
-                             for m in model.modules()),
-            "deconv2x": sum(isinstance(m, layers.DeconvBlock) and m.remat
-                            for m in model.modules())}
+    blocks = [m for m in model.modules()
+              if isinstance(m, (layers.ConvBlock, layers.DeconvBlock))
+              and m.remat]
+    return {"conv3d_k3": sum(isinstance(m, layers.ConvBlock)
+                             for m in blocks),
+            "deconv2x": sum(isinstance(m, layers.DeconvBlock)
+                            for m in blocks),
+            "block_epilogue": sum(1 if m.bn is None else 3 for m in blocks)}
 
 
 def differing(a, b):
@@ -4701,9 +4907,9 @@ def remat_joint_part(seed):
     (m_img, m_seg), (f_img, f_seg) = next(volumes), next(volumes)
     images = [on_card(cropped(v)[..., None]) for v in (m_img, f_img)]
     labels = [on_card(cropped(v), torch.int64) for v in (m_seg, f_seg)]
-    # each of the step's two differentiated applies recomputes one forward
-    # of the whole net
-    extra = add_launches(EVAL_LAUNCHES, EVAL_LAUNCHES)
+    # each of the step's two differentiated applies recomputes one
+    # train-mode forward of the whole net
+    extra = add_launches(TRAIN_FORWARD_LAUNCHES, TRAIN_FORWARD_LAUNCHES)
     entry, faults = {}, []
     for index, regime in enumerate(REGIMES):
         flags = [torch.tensor([bool(index & 2)]),
@@ -5238,6 +5444,7 @@ def main(argv=None):
         summary = check_kernels(args.seed)
         check_upsample(args.seed)
         block = check_block_kernel(args.seed)
+    check_epilogue(summary, args.seed)
     check_warp_kernels(summary, args.seed)
     check_augment_field(summary, args.seed)
     apart = check_anatomy_kernels(summary, args.seed)
@@ -5275,7 +5482,8 @@ def main(argv=None):
                  "launches": sum(launches[path][name] for path in PATHS),
                  "max_abs_err": s["max_abs_err"]}
         # the convolutions' queued (device) times beside the event times
-        keys = times + (DEVICE_TIMES if name in KERNEL_SHAPES else ()) \
+        keys = times + (DEVICE_TIMES if name in KERNEL_SHAPES
+                        or name == "block_epilogue" else ()) \
             + (("device_ms",) if name in WARP_KERNELS else ()) \
             + (CUDA_CORE_TIMES if name in CUDA_CORE_TWINS else ())
         for key in keys:
@@ -5356,7 +5564,11 @@ def main(argv=None):
                  "runs at the whole volume's 2^31-element tensors), "
                  "cuda_core_ms and cuda_core_device_ms of B and C summed "
                  "over the same slabs; its launches are the remat phase's "
-                 "runs"})
+                 "runs. block_epilogue (bfloat16) gives the 17 UNet_light "
+                 "blocks' epilogues: train mode forward and backward for "
+                 "'training' (eight such passes for 'joint'), eval mode for "
+                 "'serving', library_ms F.batch_norm + F.leaky_relu; the "
+                 "registration step's bias-only epilogues are not timed"})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -12,6 +12,7 @@ from .anatomy import (binned_sum, hard_anatomy_dice, matched_grid_grad,
                       matched_grid_grad_plain, matched_warp,
                       matched_warp_fused, matched_warp_fused_plain,
                       matched_warp_plain)
+from .block_epilogue import block_epilogue, block_epilogue_plain
 from .conv3d import (conv3d_k3, conv3d_k3_block, conv3d_k3_block_plain,
                      conv3d_k3_input_grad, conv3d_k3_input_grad_plain,
                      conv3d_k3_plain, conv3d_k3_wgrad, conv3d_k3_wgrad_plain,
@@ -27,7 +28,9 @@ from .warp_lncc import warp_lncc_loss
 # one of VoxelMorph and then the joint training first launch them
 # (matched_grid_grad is the backward of matched_warp, which the joint
 # training never differentiates; conv3d_k3_block, the multi-plane k3
-# forward, runs in the block-conv microbench, on no model path)
+# forward, runs in the block-conv microbench, on no model path), then the
+# block epilogue, which follows every conv and deconv block and came from
+# no TPU kernel
 KERNELS = {
     "conv3d_k3": (conv3d_k3, conv3d_k3_plain),
     "deconv2x": (deconv2x, deconv2x_plain),
@@ -40,6 +43,7 @@ KERNELS = {
     "matched_warp": (matched_warp, matched_warp_plain),
     "matched_grid_grad": (matched_grid_grad, matched_grid_grad_plain),
     "conv3d_k3_block": (conv3d_k3_block, conv3d_k3_block_plain),
+    "block_epilogue": (block_epilogue, block_epilogue_plain),
 }
 
 
@@ -53,9 +57,10 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "binned_sum", "conv3d_k3", "conv3d_k3_block",
-           "conv3d_k3_block_plain", "conv3d_k3_input_grad",
-           "conv3d_k3_input_grad_plain", "conv3d_k3_plain",
+__all__ = ["KERNELS", "binned_sum", "block_epilogue", "block_epilogue_plain",
+           "conv3d_k3", "conv3d_k3_block", "conv3d_k3_block_plain",
+           "conv3d_k3_input_grad", "conv3d_k3_input_grad_plain",
+           "conv3d_k3_plain",
            "conv3d_k3_wgrad", "conv3d_k3_wgrad_plain", "conv3d_point",
            "conv3d_point_plain", "deconv2x", "deconv2x_plain", "grid_sample",
            "hard_anatomy_dice", "launch_counts", "matched_grid_grad",

@@ -1,7 +1,7 @@
 """Building-block layers of the 3-D networks, on channel-last tensors.
 
 Counterparts of ``deepatlas_tpu/models/layers.py`` (ConvBlock, DeconvBlock,
-max_pool_3d, get_activation) whose convolutions run on the hand-written
+max_pool_3d) whose convolutions run on the hand-written
 kernels of ``deepatlas_torch.kernels``.  Parameters are float32 in the JAX
 package's layouts (conv kernels ``(k, k, k, Cin, Cout)``), so converted
 checkpoints need no transposes; the blocks compute in their input's type.
@@ -17,7 +17,10 @@ max-pool are shard-local, and BatchNorm sums its moments over the shards.
 Rounding points in bfloat16 follow the JAX packed blocks
 (``models/packed.py``): the conv output is rounded to bf16, the bias is
 added in bf16, the BatchNorm affine runs in bf16 with its scale and shift
-rounded to bf16, then the activation.
+rounded to bf16, then the activation.  That epilogue (bias, BatchNorm,
+activation) is one autograd Function, ``kernels.block_epilogue``: on the
+card its hand-written kernels, on the CPU the same chain in torch ops, with
+the closed-form backward in both.
 
 Rematerialization (the JAX package's ``nn.remat`` on its blocks,
 ``deepatlas_tpu/models/unet.py::_maybe_remat``): a block built with
@@ -38,26 +41,11 @@ import threading
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..kernels import conv3d_k3, deconv2x
+from ..kernels import block_epilogue, conv3d_k3, deconv2x
 from ..ops.halo import halo_exchange_d
-from ..parallel.collectives import psum_many
-
-
-def get_activation(act: str) -> Callable:
-    table = {
-        "ReLU": F.relu,
-        "LeakyReLU": lambda x: F.leaky_relu(x, negative_slope=0.01),
-        "None": lambda x: x,
-    }
-    if act not in table:
-        raise NotImplementedError(
-            f"Not Implemented activation type {act}, only {list(table)} "
-            f"are available now")
-    return table[act]
 
 
 # depth of the checkpoint recomputes running on this thread (they may nest:
@@ -120,15 +108,16 @@ class BatchNorm(nn.Module):
     batch`` with that same biased variance (``torch.nn.BatchNorm3d`` would
     store the unbiased one and counts its momentum the other way round),
     except in a checkpoint's recompute (``recomputing()``): the first pass
-    has moved them.  The moments are plain tensor ops, so autograd
-    differentiates through them.  In both modes the scale ``mul`` and
-    shift ``add`` are rounded to the compute type and the map is
-    ``x * mul + add``.
+    has moved them.  In both modes the scale ``mul`` and shift ``add`` are
+    rounded to the compute type and the map is ``x * mul + add``.  It runs
+    in ``kernels.block_epilogue``, whose backward is the closed-form
+    derivative through the moments.
 
     With a ``spatial_axis`` of more than one shard, train mode sums the
-    per-channel ``(sum x, sum x^2)`` over the shards in one differentiable
-    all-reduce and divides by the voxels of all of them (the JAX
-    ``PackedBatchNorm``'s psum of its moments).
+    per-channel ``(sum x, sum x^2)`` over the shards in one all-reduce and
+    divides by the voxels of all of them (the JAX ``PackedBatchNorm``'s
+    psum of its moments); the backward sums its per-channel sums over the
+    shards the same way.
     """
     spatial_axis = None
 
@@ -142,30 +131,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            xf = x.float()
-            ax = self.spatial_axis
-            if ax is None or ax.size == 1:
-                mean = xf.mean(dim=(0, 1, 2, 3))
-                var = ((xf * xf).mean(dim=(0, 1, 2, 3)) - mean * mean
-                       ).clamp(min=0.0)
-            else:
-                n = xf.numel() // xf.shape[-1] * ax.size
-                s, s2 = psum_many([xf.sum(dim=(0, 1, 2, 3)),
-                                   (xf * xf).sum(dim=(0, 1, 2, 3))], ax)
-                mean = s / n
-                var = (s2 / n - mean * mean).clamp(min=0.0)
-            if not recomputing():
-                with torch.no_grad():
-                    self.running_mean.mul_(self.momentum).add_(
-                        mean, alpha=1 - self.momentum)
-                    self.running_var.mul_(self.momentum).add_(
-                        var, alpha=1 - self.momentum)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = self.weight * torch.rsqrt(var + self.eps)
-        add = self.bias - mean * mul
-        return x * mul.to(x.dtype) + add.to(x.dtype)
+        return block_epilogue(x, None, self, "None", train,
+                              update_stats=not recomputing())
 
 
 class _Block(nn.Module):
@@ -183,7 +150,7 @@ class _Block(nn.Module):
         self.weight = nn.Parameter(glorot_normal_(torch.empty(kernel_shape)))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.bn = BatchNorm(features) if batchnorm else None
-        self.act = get_activation(act)
+        self.act = act
 
     def _op(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -198,12 +165,8 @@ class _Block(nn.Module):
             return self._forward(x, train)
 
     def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        y = self._op(x)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        if self.bn is not None:
-            y = self.bn(y, train)
-        return self.act(y)
+        return block_epilogue(self._op(x), self.bias, self.bn, self.act,
+                              train, update_stats=not recomputing())
 
 
 class ConvBlock(_Block):

@@ -577,9 +577,9 @@ SEG_REGIME_LAUNCHES = {
 def test_joint_seg_step_launches_per_regime_on_card(cuda, flags):
     """One joint seg step per label regime on small nets: the anatomy
     launches the regime's branch implies (the frozen reg net's forward is
-    convolutions only), the same loss and gradients as the soft branch on
-    the card (1e-4 of a tensor's largest entry: float32 nets, atomics in any
-    order), and the frozen reg net untouched."""
+    convolutions and block epilogues only), the same loss and gradients as
+    the soft branch on the card (1e-4 of a tensor's largest entry: float32
+    nets, atomics in any order), and the frozen reg net untouched."""
     import functools
 
     from deepatlas_torch import kernels
@@ -621,7 +621,7 @@ def test_joint_seg_step_launches_per_regime_on_card(cuda, flags):
         launched = {k: after[k] - before[k] for k in after
                     if after[k] != before[k] and k not in (
                         "conv3d_k3", "conv3d_k3_wgrad", "conv3d_point",
-                        "deconv2x")}
+                        "deconv2x", "block_epilogue")}
         grads = {n: p.grad.clone() for n, p in seg.named_parameters()}
         return {k: float(v) for k, v in metrics.items()}, grads, launched
 
