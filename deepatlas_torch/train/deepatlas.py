@@ -45,6 +45,13 @@ JAX CLI packs the seg model unless ``--no-packed``, so its runs default to
 False.  The guard's ``xla`` action sets it to True where the config does
 not say, as the JAX guard does.  The networks' per-block ``remat`` comes
 with ``seg_model_settings`` / ``reg_model_settings``.
+
+Spans (``utils/profiling.annotate``): ``experiment.copy_in``, a pair's
+images and labels copied to the device; ``experiment.step``, each phase
+step's call (the steps' own spans, ``train/reg_steps.py``, lie inside);
+``experiment.log``, the print period's scalars and print;
+``experiment.guard``, each overflow-guard action, which ``guard_actions``
+counts.
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
 from ..parallel.collectives import axis_size
 from ..utils import visualize
+from ..utils.profiling import annotate
 from .base import BaseExperiment, test_logger
 from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
 from .guard import make_guard
@@ -115,6 +123,8 @@ class DeepAtlasExperiment(BaseExperiment):
         self.current_epoch = 1
         self.global_step = 0
         self._pending_best = False
+        # overflow-guard actions taken (``_apply_guard_action`` calls)
+        self.guard_actions = 0
 
     # ------------------------------------------------------------- setup
     def setup_log(self):
@@ -266,7 +276,13 @@ class DeepAtlasExperiment(BaseExperiment):
 
     def _apply_guard_action(self, action: dict):
         """Perform a DispOverflowGuard action: warn, widen ``max_disp``, or
-        warp unclamped; the latter two rebuild the phase steps."""
+        warp unclamped; the latter two rebuild the phase steps.  Counted in
+        ``guard_actions``, inside an ``experiment.guard`` span."""
+        self.guard_actions += 1
+        with annotate("experiment.guard"):
+            self._guard_action(action)
+
+    def _guard_action(self, action: dict):
         md = self.config.get("max_disp", 8)
         if action["action"] == "warn":
             print("=> WARNING: disp_overflow above threshold for {} "
@@ -337,12 +353,18 @@ class DeepAtlasExperiment(BaseExperiment):
         print("=> resumed from '{}' (epoch {})".format(resume_dir,
                                                        finished_epoch))
 
-    def _to_device(self, batch, key, local: bool = False):
-        """``batch[key]`` on the device (labels as int64); with ``local``
-        this rank's block of it (``local_batch``)."""
-        x = self.local_batch(batch[key]) if local else batch[key]
-        t = torch.from_numpy(x).to(self.device)
-        return t.long() if key == "segmentation" else t
+    def _to_device(self, *batches, local: bool = False):
+        """Each batch's image and labels (int64) on the device, in turn;
+        with ``local`` this rank's block of them (``local_batch``)."""
+        cut = self.local_batch if local else (lambda x: x)
+        out = []
+        with annotate("experiment.copy_in"):
+            for batch in batches:
+                out.append(torch.from_numpy(cut(batch["image"])).to(
+                    self.device))
+                out.append(torch.from_numpy(cut(batch["segmentation"])).to(
+                    self.device).long())
+        return out
 
     # ------------------------------------------------------------- train
     def train(self):
@@ -386,10 +408,8 @@ class DeepAtlasExperiment(BaseExperiment):
             aug = self.augmenter is not None
             # augmented whole, as one process does it, then cut to the
             # rank's block
-            img_m = self._to_device(batch_m, "image", local=not aug)
-            img_f = self._to_device(batch_f, "image", local=not aug)
-            seg_m = self._to_device(batch_m, "segmentation", local=not aug)
-            seg_f = self._to_device(batch_f, "segmentation", local=not aug)
+            img_m, seg_m, img_f, seg_f = self._to_device(batch_m, batch_f,
+                                                         local=not aug)
             if aug:
                 akey = (self.config["random_seed"], 2 ** 20 + self.global_step)
                 img_m, seg_m = self.augmenter(fold_in(akey, 0), img_m, seg_m)
@@ -407,13 +427,15 @@ class DeepAtlasExperiment(BaseExperiment):
             args = (img_m, img_f, seg_m, seg_f, flags_m, flags_f)
             # alternate phases (seg on even iterations, reg on odd)
             if i % 2 == 0:
-                self.seg_state, metrics = self.seg_step(self.seg_state,
-                                                        self.reg_state, *args)
+                with annotate("experiment.step"):
+                    self.seg_state, metrics = self.seg_step(
+                        self.seg_state, self.reg_state, *args)
                 for k in run_seg:
                     run_seg[k] += float(metrics[k])
             else:
-                self.reg_state, metrics = self.reg_step(self.reg_state,
-                                                        self.seg_state, *args)
+                with annotate("experiment.step"):
+                    self.reg_state, metrics = self.reg_step(
+                        self.reg_state, self.seg_state, *args)
                 for k in run_reg:
                     run_reg[k] += float(metrics[k])
                 if self.overflow_guard is not None \
@@ -427,18 +449,20 @@ class DeepAtlasExperiment(BaseExperiment):
                 * self.config["batch_size"]
             if i % period == period - 1:
                 n = max(period // 2, 1)
-                print("Epoch[{}/{}] iter {} seg_loss {:.4f} reg_loss {:.4f} "
-                      "anat {:.4f} {}".format(
-                          self.current_epoch, self.config["n_epochs"], i + 1,
-                          run_seg["loss"] / n, run_reg["loss"] / n,
-                          run_reg["anatomy"] / n,
-                          datetime.datetime.now().strftime("%D %H:%M:%S")))
-                for k, v in run_seg.items():
-                    self.writer.add_scalar(f"seg/{k}", v / n,
-                                           self.global_step)
-                for k, v in run_reg.items():
-                    self.writer.add_scalar(f"reg/{k}", v / n,
-                                           self.global_step)
+                with annotate("experiment.log"):
+                    print("Epoch[{}/{}] iter {} seg_loss {:.4f} reg_loss "
+                          "{:.4f} anat {:.4f} {}".format(
+                              self.current_epoch, self.config["n_epochs"],
+                              i + 1, run_seg["loss"] / n, run_reg["loss"] / n,
+                              run_reg["anatomy"] / n,
+                              datetime.datetime.now().strftime(
+                                  "%D %H:%M:%S")))
+                    for k, v in run_seg.items():
+                        self.writer.add_scalar(f"seg/{k}", v / n,
+                                               self.global_step)
+                    for k, v in run_reg.items():
+                        self.writer.add_scalar(f"reg/{k}", v / n,
+                                               self.global_step)
                 run_reg = {k: 0.0 for k in run_reg}
                 run_seg = {k: 0.0 for k in run_seg}
 
@@ -452,9 +476,8 @@ class DeepAtlasExperiment(BaseExperiment):
         dice_sum = np.zeros((n_fg,), np.float64)
         count = 0
         for batch in seg_loader:
-            dice, _ = self.seg_eval_step(
-                self.seg_state, self._to_device(batch, "image"),
-                self._to_device(batch, "segmentation"))
+            dice, _ = self.seg_eval_step(self.seg_state,
+                                         *self._to_device(batch))
             dice_sum += dice.double().sum(dim=0).cpu().numpy()
             count += dice.shape[0]
         seg_per_class = dice_sum / max(count, 1)
@@ -463,11 +486,9 @@ class DeepAtlasExperiment(BaseExperiment):
         folding_sum = 0.0
         count = 0
         for batch_m, batch_f in reg_loader:
+            img_m, seg_m, img_f, seg_f = self._to_device(batch_m, batch_f)
             dice, folding, _ = self.reg_eval_step(
-                self.reg_state, self._to_device(batch_m, "image"),
-                self._to_device(batch_f, "image"),
-                self._to_device(batch_m, "segmentation"),
-                self._to_device(batch_f, "segmentation"))
+                self.reg_state, img_m, img_f, seg_m, seg_f)
             dice_sum += dice.double().sum(dim=0).cpu().numpy()
             folding_sum += float(folding)
             count += dice.shape[0]

@@ -17,6 +17,17 @@ the joint steps data-parallel: each rank runs its rows, the gradients,
 BatchNorm statistics and metrics are averaged over the replicas in one
 all-reduce before the update, and the seg step weighs its supervised terms
 by the labelled branches of all replicas.
+
+The joint steps' spans (``utils/profiling.annotate``): ``step.frozen``, the
+frozen network's forward (the seg net's argmax of unlabelled sides in the
+reg phase, the reg net's field in the seg phase); ``step.forward``, each
+forward of the trained network; ``step.loss``, each loss graph and the
+anatomy's constants; ``step.backward``, each backward pass (Adam carries
+torch's own marker).  A reg step logs each once; a seg step's two
+sequenced passes log two forwards and two backwards, and one loss span
+per pass plus one for the anatomy's constants where its branch takes them
+(three in ``hard``, ``m_hard`` and ``f_hard``, two in ``soft``; one
+backward in the single-graph step).
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ from ..ops import (clamp_displacement, displacement_overflow, grid_sample,
                    one_hot, warp_labels)
 from ..parallel.collectives import (axis_size, batchnorm_stats, param_grads,
                                     pmean_tree, psum_tree)
+from ..utils.profiling import annotate
 from .steps import TrainState
 
 
@@ -94,6 +106,11 @@ def make_reg_eval_step(n_class: int):
     return eval_step
 
 
+def _backward(loss: torch.Tensor) -> None:
+    with annotate("step.backward"):
+        loss.backward()
+
+
 def _labels_or_prediction(seg_state: TrainState, has_label: torch.Tensor,
                           gt_seg: torch.Tensor, images: torch.Tensor):
     """Ground-truth labels where ``has_label`` (a host ``(B,)`` bool
@@ -136,24 +153,27 @@ def make_joint_reg_step(sim_loss: Callable, reg_loss: Callable,
 
     def step(reg_state: TrainState, seg_state: TrainState, moving, fixed,
              moving_seg, fixed_seg, moving_has_label, fixed_has_label):
-        lab_m = _labels_or_prediction(seg_state, moving_has_label,
-                                      moving_seg, moving)
-        lab_f = _labels_or_prediction(seg_state, fixed_has_label, fixed_seg,
-                                      fixed)
+        with annotate("step.frozen"):
+            lab_m = _labels_or_prediction(seg_state, moving_has_label,
+                                          moving_seg, moving)
+            lab_f = _labels_or_prediction(seg_state, fixed_has_label,
+                                          fixed_seg, fixed)
         reg_state.optimizer.zero_grad(set_to_none=True)
-        disp, warped, deform = reg_state.model(moving, fixed, train=True)
-        sim = sim_loss(warped.float(), fixed.float())
-        reg = reg_loss(disp.float())
-        if fused_anatomy:
-            anat = hard_anatomy_dice(lab_m, lab_f, deform, n_class,
-                                     max_disp=max_disp, fused_grad=True)
-        else:
-            onehot_m = one_hot(lab_m, n_class,
-                               dtype=anatomy_dtype or torch.float32)
-            anat = soft_dice_on_probs(warp_fn(onehot_m, deform), lab_f,
-                                      n_class)
-        loss = sim + reg_weight * reg + anatomy_weight * anat
-        loss.backward()
+        with annotate("step.forward"):
+            disp, warped, deform = reg_state.model(moving, fixed, train=True)
+        with annotate("step.loss"):
+            sim = sim_loss(warped.float(), fixed.float())
+            reg = reg_loss(disp.float())
+            if fused_anatomy:
+                anat = hard_anatomy_dice(lab_m, lab_f, deform, n_class,
+                                         max_disp=max_disp, fused_grad=True)
+            else:
+                onehot_m = one_hot(lab_m, n_class,
+                                   dtype=anatomy_dtype or torch.float32)
+                anat = soft_dice_on_probs(warp_fn(onehot_m, deform), lab_f,
+                                          n_class)
+            loss = sim + reg_weight * reg + anatomy_weight * anat
+        _backward(loss)
         metrics = {"loss": loss.detach(), "sim": sim.detach(),
                    "reg": reg.detach(), "anatomy": anat.detach()}
         if max_disp is not None:
@@ -238,12 +258,13 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
         net = seg_state.model
 
         def model(images, train):
-            if checkpoint_apply:
-                return checkpointed(net, images, train)
-            return net(images, train=train)
+            with annotate("step.forward"):
+                if checkpoint_apply:
+                    return checkpointed(net, images, train)
+                return net(images, train=train)
 
         moving_seg, fixed_seg = moving_seg.long(), fixed_seg.long()
-        with torch.no_grad():
+        with annotate("step.frozen"), torch.no_grad():
             _, deform = reg_state.model.deformation(moving, fixed,
                                                     train=False)
         has_m = moving_has_label.to(moving.device)
@@ -267,60 +288,71 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
 
         def pass_b_supervised():
             logits_f = model(fixed, train=True)
-            sup_f, loss = sup_term(logits_f, fixed_seg, any_f)
-            loss.backward()
+            with annotate("step.loss"):
+                sup_f, loss = sup_term(logits_f, fixed_seg, any_f)
+            _backward(loss)
             return sup_f
 
         def pass_a_supervised():
             logits_m = model(moving, train=True)
-            sup_m, loss = sup_term(logits_m, moving_seg, any_m)
-            loss.backward()
+            with annotate("step.loss"):
+                sup_m, loss = sup_term(logits_m, moving_seg, any_m)
+            _backward(loss)
             return sup_m
 
         def soft():
             logits_m = model(moving, train=True)
             logits_f = model(fixed, train=True)
-            onehot_f = one_hot(fixed_seg, n_class, dtype=adt)
-            # pass A: the moving branch against constant fixed probabilities
-            f_probs_const = branch_probs(logits_f.detach(), has_f, onehot_f)
-            m_probs = branch_probs(logits_m, has_m,
-                                   one_hot(moving_seg, n_class, dtype=adt))
-            warped_m = warp_fn(m_probs, deform)
-            anat = _soft_dice(warped_m, f_probs_const)
-            sup_m, sup_loss = sup_term(logits_m, moving_seg, any_m)
-            (anatomy_weight * anat + sup_loss).backward()
+            with annotate("step.loss"):
+                onehot_f = one_hot(fixed_seg, n_class, dtype=adt)
+                # pass A: the moving branch against constant fixed
+                # probabilities
+                f_probs_const = branch_probs(logits_f.detach(), has_f,
+                                             onehot_f)
+                m_probs = branch_probs(logits_m, has_m,
+                                       one_hot(moving_seg, n_class,
+                                               dtype=adt))
+                warped_m = warp_fn(m_probs, deform)
+                anat = _soft_dice(warped_m, f_probs_const)
+                sup_m, sup_loss = sup_term(logits_m, moving_seg, any_m)
+                loss = anatomy_weight * anat + sup_loss
+            _backward(loss)
             # pass B: the fixed branch against the constant warped anatomy
             warped_const = warped_m.detach()
             del logits_m, f_probs_const, m_probs, warped_m
-            anat_b = _soft_dice(warped_const,
-                                branch_probs(logits_f, has_f, onehot_f))
-            sup_f, sup_loss = sup_term(logits_f, fixed_seg, any_f)
-            (anatomy_weight * anat_b + sup_loss).backward()
+            with annotate("step.loss"):
+                anat_b = _soft_dice(warped_const,
+                                    branch_probs(logits_f, has_f, onehot_f))
+                sup_f, sup_loss = sup_term(logits_f, fixed_seg, any_f)
+                loss = anatomy_weight * anat_b + sup_loss
+            _backward(loss)
             return anat, sup_m, sup_f
 
         def hard():
-            with torch.no_grad():
+            with annotate("step.loss"), torch.no_grad():
                 anat = hard_anatomy_dice(moving_seg, fixed_seg, deform,
                                          n_class, max_disp=max_disp)
             return anat, pass_a_supervised(), pass_b_supervised()
 
         def m_hard():
-            with torch.no_grad():
+            with annotate("step.loss"), torch.no_grad():
                 warped_const = warp_fn(
                     one_hot(moving_seg, n_class, dtype=adt), deform)
             sup_m = pass_a_supervised()
             logits_f = model(fixed, train=True)
-            f_probs = branch_probs(logits_f, has_f,
-                                   one_hot(fixed_seg, n_class, dtype=adt))
-            anat = _soft_dice(warped_const, f_probs)
-            sup_f, sup_loss = sup_term(logits_f, fixed_seg, any_f)
-            (anatomy_weight * anat + sup_loss).backward()
+            with annotate("step.loss"):
+                f_probs = branch_probs(logits_f, has_f,
+                                       one_hot(fixed_seg, n_class, dtype=adt))
+                anat = _soft_dice(warped_const, f_probs)
+                sup_f, sup_loss = sup_term(logits_f, fixed_seg, any_f)
+                loss = anatomy_weight * anat + sup_loss
+            _backward(loss)
             return anat, sup_m, sup_f
 
         def f_hard():
             # <warp(m_probs)_c, onehot_f_c> = <m_probs_c, splat(onehot_f)_c>:
             # one splat of a constant, the anatomy elementwise in m_probs
-            with torch.no_grad():
+            with annotate("step.loss"), torch.no_grad():
                 onehot_f = one_hot(fixed_seg, n_class, dtype=torch.float32)
                 splat = splat_trilinear(
                     onehot_f, clamp_displacement(deform, max_disp).float()
@@ -329,28 +361,34 @@ def make_joint_seg_step(supervised_loss: Callable, anatomy_weight: float,
                 den_f = onehot_f[..., 1:].sum(dim=(1, 2, 3))
                 del onehot_f
             logits_m = model(moving, train=True)
-            m_probs = branch_probs(logits_m, has_m,
-                                   one_hot(moving_seg, n_class, dtype=adt)
-                                   ).float()
-            inter = (m_probs[..., 1:] * splat[..., 1:]).sum(dim=(1, 2, 3))
-            den_m = (m_probs[..., 1:] * w_all).sum(dim=(1, 2, 3))
-            anat = 1.0 - torch.mean(2.0 * inter / (den_m + den_f + 1e-5))
-            sup_m, sup_loss = sup_term(logits_m, moving_seg, any_m)
-            (anatomy_weight * anat + sup_loss).backward()
+            with annotate("step.loss"):
+                m_probs = branch_probs(logits_m, has_m,
+                                       one_hot(moving_seg, n_class,
+                                               dtype=adt)).float()
+                inter = (m_probs[..., 1:] * splat[..., 1:]).sum(
+                    dim=(1, 2, 3))
+                den_m = (m_probs[..., 1:] * w_all).sum(dim=(1, 2, 3))
+                anat = 1.0 - torch.mean(2.0 * inter / (den_m + den_f + 1e-5))
+                sup_m, sup_loss = sup_term(logits_m, moving_seg, any_m)
+                loss = anatomy_weight * anat + sup_loss
+            _backward(loss)
             del logits_m, m_probs, splat, w_all
             return anat, sup_m, pass_b_supervised()
 
         def single_graph():
             logits_m = model(moving, train=True)
             logits_f = model(fixed, train=True)
-            m_probs = branch_probs(logits_m, has_m,
-                                   one_hot(moving_seg, n_class, dtype=adt))
-            f_probs = branch_probs(logits_f, has_f,
-                                   one_hot(fixed_seg, n_class, dtype=adt))
-            anat = _soft_dice(warp_fn(m_probs, deform), f_probs)
-            sup_m, loss_m = sup_term(logits_m, moving_seg, any_m)
-            sup_f, loss_f = sup_term(logits_f, fixed_seg, any_f)
-            (anatomy_weight * anat + loss_m + loss_f).backward()
+            with annotate("step.loss"):
+                m_probs = branch_probs(logits_m, has_m,
+                                       one_hot(moving_seg, n_class,
+                                               dtype=adt))
+                f_probs = branch_probs(logits_f, has_f,
+                                       one_hot(fixed_seg, n_class, dtype=adt))
+                anat = _soft_dice(warp_fn(m_probs, deform), f_probs)
+                sup_m, loss_m = sup_term(logits_m, moving_seg, any_m)
+                sup_f, loss_f = sup_term(logits_f, fixed_seg, any_f)
+                loss = anatomy_weight * anat + loss_m + loss_f
+            _backward(loss)
             return anat, sup_m, sup_f
 
         seg_state.optimizer.zero_grad(set_to_none=True)

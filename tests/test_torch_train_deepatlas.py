@@ -13,7 +13,9 @@ deepatlas``.
 """
 import json
 import os
+import time
 import types
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -29,6 +31,9 @@ from deepatlas_tpu.train import guard as jax_guard
 from deepatlas_torch.train import (DeepAtlasExperiment, DispOverflowGuard,
                                    deepatlas, initialize_from,
                                    load_checkpoint, make_guard, reg_steps)
+
+from deepatlas_torch.data import endless
+from deepatlas_torch.utils import spans_between
 
 import chip_smoke
 import train_deepatlas_torch
@@ -227,6 +232,52 @@ def test_unported_config_keys_and_missing_card_raise(corpus):
                                return_value=False), \
                 pytest.raises(RuntimeError, match="CUDA is not available"):
             DeepAtlasExperiment({**config, "device": device})
+
+
+def test_epoch_logs_the_experiment_step_and_guard_spans(corpus):
+    """Per step one ``experiment.copy_in`` (the pair's four arrays), then
+    one ``experiment.step`` that opens with ``step.frozen`` and holds the
+    step's ``step.forward`` / ``.loss`` / ``.backward`` (a reg step one
+    each in turn; a seg step two forwards and two backwards, ending on a
+    backward); ``experiment.log`` once per print period; one
+    ``experiment.guard`` per guard action, outside the steps, as many as
+    ``guard_actions`` counts."""
+    config = tiny_config(corpus, n_epochs=1, overflow_guard={
+        "threshold": -1.0, "patience": 1, "mode": "escalate"})
+    exp = DeepAtlasExperiment(config)
+    exp.setup_train()
+    exp._init_state()
+    exp._train_iter = endless(exp.training_data_loader)
+    t0 = time.perf_counter()
+    exp.train_one_epoch()
+    spans = [s for s in spans_between(t0, time.perf_counter())
+             if not s[0].startswith("data.")]
+    exp.close()
+    steps = 4
+    count = Counter(n for n, _, _ in spans)
+    assert exp.guard_actions == steps // 2     # an action every reg step
+    assert {k: count[k] for k in ("experiment.copy_in", "experiment.step",
+                                  "step.frozen", "experiment.log",
+                                  "experiment.guard")} == {
+        "experiment.copy_in": steps, "experiment.step": steps,
+        "step.frozen": steps, "experiment.log": steps // 2,
+        "experiment.guard": exp.guard_actions}
+    outer = [s for s in spans if s[0] == "experiment.step"]
+    for i, (_, s0, e0) in enumerate(outer):
+        inner = [n for n, s, e in spans
+                 if n.startswith("step.") and s0 <= s and e <= e0]
+        assert inner[0] == "step.frozen", (i, inner)
+        kinds = Counter(inner)
+        if i % 2:
+            assert inner == ["step.frozen", "step.forward", "step.loss",
+                             "step.backward"], (i, inner)
+        else:
+            assert (kinds["step.forward"], kinds["step.backward"]) == (2, 2)
+            assert kinds["step.loss"] in (2, 3) and \
+                inner[-1] == "step.backward", (i, inner)
+    for _, g0, g1 in (s for s in spans if s[0] == "experiment.guard"):
+        assert not any(s0 < g1 and g0 < e0 for _, s0, e0 in outer)
+    assert count["step.forward"] == 3 * steps // 2
 
 
 # ----------------------------------------------------------------- guard
