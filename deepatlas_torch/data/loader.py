@@ -3,9 +3,14 @@
 A prefetch thread plus an optional decode pool: ``num_workers`` threads run
 the per-sample NIfTI inflate/parse/preprocess concurrently, a bounded
 in-flight window keeps memory flat, and ordered collection keeps batches
-deterministic.  The iterator accounts the time the consumer spends blocked
-on ingest (``wait_seconds`` / ``wait_fraction``); each sample's read is a
-``data.decode`` span (logged; no profiler marker on the loader's
+deterministic.  The pool is sized from the CPUs the process may use
+(``host_num_workers``; its share where several ranks share the host),
+except over a dataset whose reads draw from a random state its
+``running_transform`` shares between the threads: those draws depend on
+the thread count, so such a dataset keeps ``auto_num_workers(batch_size)``.  The iterator accounts the time the
+consumer spends blocked on ingest (``wait_seconds`` / ``wait_fraction``)
+and the pool the time its reads take (``decode_seconds``); each sample's
+read is a ``data.decode`` span (logged; no profiler marker on the loader's
 threads).
 
 Each iterator owns its collation buffer ring and its producer thread: two
@@ -14,6 +19,7 @@ dropped before the end stops its producer instead of leaving it blocked.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -27,11 +33,86 @@ import numpy as np
 from ..utils.profiling import annotate
 
 
+MAX_WORKERS = 16
+
+
 def auto_num_workers(batch_size: int) -> int:
     """Decode-pool size scaled to the batch, bounded by twice the host's
-    cores and a cap of 16."""
+    cores and a cap of 16: the size over datasets whose draws depend on the
+    thread count."""
     cores = os.cpu_count() or 1
-    return max(2, min(batch_size, 2 * cores, 16))
+    return max(2, min(batch_size, 2 * cores, MAX_WORKERS))
+
+
+def _read_quota(cgroup: str, v2: bool) -> Optional[float]:
+    """One cgroup's CPU quota in CPUs (v2 ``cpu.max``, v1
+    ``cpu.cfs_quota_us`` over ``cpu.cfs_period_us``); None where it sets
+    none or none can be read."""
+    try:
+        if v2:
+            with open(os.path.join(cgroup, "cpu.max")) as f:
+                quota, period = f.read().split()[:2]
+        else:
+            with open(os.path.join(cgroup, "cpu.cfs_quota_us")) as f:
+                quota = f.read().strip()
+            with open(os.path.join(cgroup, "cpu.cfs_period_us")) as f:
+                period = f.read().strip()
+        if quota == "max" or int(quota) <= 0:
+            return None
+        return int(quota) / int(period)
+    except (OSError, ValueError):
+        return None
+
+
+def _cgroup_cpu_quota(root: str = "/sys/fs/cgroup",
+                      proc: str = "/proc/self/cgroup") -> Optional[float]:
+    """The CPUs' worth of time this process's cgroups allow: the smallest
+    quota from its own cgroup, as ``proc`` names it, up to the root of the
+    hierarchy mounted at ``root`` (v1's ``cpu`` controller where it has
+    one, else v2); None where no quota is set or none can be read.  A
+    cgroup the mount does not show (inside a container) is passed over."""
+    paths = {}
+    try:
+        with open(proc) as f:
+            for line in f:
+                _, controllers, path = line.rstrip("\n").split(":", 2)
+                for controller in controllers.split(","):
+                    paths[controller] = path
+    except (OSError, ValueError):
+        pass
+    v2 = "cpu" not in paths
+    base = root if v2 else os.path.join(root, "cpu")
+    path = paths.get("" if v2 else "cpu", "/")
+    quotas = []
+    while True:
+        quota = _read_quota(os.path.join(base, path.lstrip("/")), v2)
+        if quota is not None:
+            quotas.append(quota)
+        if path in ("/", ""):
+            return min(quotas, default=None)
+        path = os.path.dirname(path)
+
+
+def usable_cpus() -> int:
+    """The CPUs this process may run on (its affinity mask), cut to its
+    cgroups' CPU quota where one is set."""
+    try:
+        cpus = len(os.sched_getaffinity(0))
+    except AttributeError:          # no affinity call on this platform
+        cpus = os.cpu_count() or 1
+    quota = _cgroup_cpu_quota()
+    if quota is not None:
+        cpus = min(cpus, max(1, int(quota)))
+    return cpus
+
+
+def host_num_workers() -> int:
+    """Decode-pool size from the host: this process's share of the usable
+    CPUs (torchrun's ``LOCAL_WORLD_SIZE`` ranks on one host each run a
+    loader) less one for the thread that queues the steps and one for the
+    loader's producer, between 2 and 16."""
+    ranks = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
+    return max(2, min(usable_cpus() // ranks - 2, MAX_WORKERS))
 
 
 class _BufferRing:
@@ -92,6 +173,10 @@ class DataLoader:
       drop_last: drop the trailing partial batch.
       prefetch: batches staged ahead by the background thread (0 disables
         threading).
+      num_workers: decode-pool threads (0 or 1: read on the producer
+        thread); default ``host_num_workers()``, or
+        ``auto_num_workers(batch_size)`` over a dataset with a
+        ``running_transform``.
       collate: ``list of samples -> batch``; default stacks into the
         iterator's buffer ring.
 
@@ -109,12 +194,21 @@ class DataLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
-        self.num_workers = (auto_num_workers(batch_size)
-                            if num_workers is None else num_workers)
+        if num_workers is None:
+            # a running transform's random crops draw from one random state
+            # that the pool's threads share, so its draws (and the balanced
+            # sampler's unlocked class cycle) depend on the thread count
+            num_workers = (auto_num_workers(batch_size)
+                           if getattr(dataset, "running_transform", None)
+                           else host_num_workers())
+        self.num_workers = num_workers
         self.collate = collate
         self._rng = np.random.RandomState(seed)
         self.wait_seconds = 0.0
         self.total_seconds = 0.0
+        # summed duration of the reads, from every thread of the pool
+        self.decode_seconds = 0.0
+        self._decode_lock = threading.Lock()
 
     @property
     def wait_fraction(self) -> float:
@@ -136,40 +230,69 @@ class DataLoader:
             yield idx[b * self.batch_size:(b + 1) * self.batch_size]
 
     def _decode(self, i: int):
+        t0 = time.perf_counter()
         with annotate("data.decode"):
-            return self.dataset[i]
+            sample = self.dataset[i]
+        seconds = time.perf_counter() - t0
+        with self._decode_lock:
+            self.decode_seconds += seconds
+        return sample
 
-    def _produce(self, collate: Callable):
-        if self.num_workers <= 1:
+    def _samples(self, epochs: Optional[int]):
+        """``(index, ends_a_batch)`` of ``epochs`` epochs one after another
+        (None: without end), each epoch shuffled as it is reached."""
+        if len(self) == 0:
+            return
+        for _ in itertools.count() if epochs is None else range(epochs):
             for batch_idx in self._batch_indices():
-                yield collate([self._decode(int(i)) for i in batch_idx])
+                for k, i in enumerate(batch_idx):
+                    yield int(i), k == len(batch_idx) - 1
+
+    def _produce(self, collate: Callable, epochs: Optional[int]):
+        samples = self._samples(epochs)
+        if self.num_workers <= 1:
+            batch: list = []
+            for i, last in samples:
+                batch.append(self._decode(i))
+                if last:
+                    yield collate(batch)
+                    batch = []
             return
         # decode pool: per-sample futures over a bounded window, collected
-        # in order (deterministic batches regardless of workers)
+        # in order (deterministic batches regardless of workers); the
+        # window runs on across epochs, so an epoch's first reads overlap
+        # the last batches of the one before
         window = self.num_workers + self.batch_size * max(self.prefetch, 1)
-        flat = [int(i) for bi in self._batch_indices() for i in bi]
         with ThreadPoolExecutor(self.num_workers) as pool:
-            futs: deque = deque(pool.submit(self._decode, i)
-                                for i in flat[:window])
-            pos = len(futs)
-            batch: list = []
+            futs: deque = deque()
+
+            def submit() -> None:
+                nxt = next(samples, None)
+                if nxt is not None:
+                    futs.append((pool.submit(self._decode, nxt[0]), nxt[1]))
+
+            for _ in range(window):
+                submit()
+            batch = []
             while futs:
-                batch.append(futs.popleft().result())
-                if pos < len(flat):
-                    futs.append(pool.submit(self._decode, flat[pos]))
-                    pos += 1
-                if len(batch) == self.batch_size:
+                fut, last = futs.popleft()
+                batch.append(fut.result())
+                submit()
+                if last:
                     yield collate(batch)
                     batch = []
 
     def __iter__(self) -> Iterator[dict]:
+        return self._iterate(epochs=1)
+
+    def _iterate(self, epochs: Optional[int]) -> Iterator[dict]:
         if self.collate is None:
             ring = _BufferRing(self.prefetch + 3)
             collate = lambda samples: _stack_samples(samples, ring)  # noqa: E731
         else:
             collate = self.collate
         if self.prefetch <= 0:
-            yield from self._produce(collate)
+            yield from self._produce(collate, epochs)
             return
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -188,7 +311,7 @@ class DataLoader:
 
         def worker():
             try:
-                for batch in self._produce(collate):
+                for batch in self._produce(collate, epochs):
                     if not put(batch):
                         return
             except Exception as e:  # surfaced to the consumer below
@@ -218,6 +341,7 @@ class DataLoader:
 
 def endless(loader: DataLoader) -> Iterator[dict]:
     """Cycle a loader forever (one training epoch draws a fixed number of
-    batches, whatever the dataset's length)."""
-    while True:
-        yield from loader
+    batches, whatever the dataset's length): its epochs one after another,
+    the same batches as iterating it again and again, through one producer
+    and decode pool whose window runs across epoch boundaries."""
+    return loader._iterate(epochs=None)

@@ -150,7 +150,6 @@ class DeepAtlasExperiment(BaseExperiment):
         return reg, seg
 
     def setup_train_data(self):
-        print("Initializing dataloader")
         training_data = get_reg_dataset(self.config["data"])(
             self.config["training_list_file"], self.config["data_dir"],
             with_seg=True, preload=self.config.get("preload", False),
@@ -161,6 +160,8 @@ class DeepAtlasExperiment(BaseExperiment):
             seed=self.config["random_seed"],
             prefetch=self.config.get("prefetch", 2),
             num_workers=self.config.get("num_workers"))
+        print("Initializing dataloader: {} decode threads".format(
+            self.training_data_loader.num_workers))
         # semi-supervision: only the first n_labeled scans keep their labels
         self.n_labeled = self.config.get("n_labeled")
         self.labeled_names = set(training_data.name_list[:self.n_labeled]

@@ -130,7 +130,6 @@ class RegistrationExperiment(BaseExperiment):
         return Compose(transforms)
 
     def setup_train_data(self):
-        print("Initializing dataloader")
         dataset_cls = get_reg_dataset(self.config["data"])
         tf = self._transforms()
         training_data = dataset_cls(
@@ -142,6 +141,8 @@ class RegistrationExperiment(BaseExperiment):
             seed=self.config["random_seed"],
             prefetch=self.config.get("prefetch", 2),
             num_workers=self.config.get("num_workers"))
+        print("Initializing dataloader: {} decode threads".format(
+            self.training_data_loader.num_workers))
         validation_data = dataset_cls(
             self.config["validation_list_file"],
             self.config.get("valid_data_dir", self.config["data_dir"]),

@@ -141,7 +141,6 @@ class SegmentationExperiment(BaseExperiment):
                           random_state=rng)
 
     def setup_train_data(self):
-        print("Initializing dataloader")
         dataset_cls = get_seg_dataset(self.config["data"])
         tf = self._transforms()
         training_data = dataset_cls(
@@ -154,6 +153,8 @@ class SegmentationExperiment(BaseExperiment):
             seed=self.config["random_seed"],
             prefetch=self.config.get("prefetch", 2),
             num_workers=self.config.get("num_workers"))
+        print("Initializing dataloader: {} decode threads".format(
+            self.training_data_loader.num_workers))
         validation_data = dataset_cls(
             self.config["validation_list_file"],
             self.config.get("valid_data_dir", self.config["data_dir"]),

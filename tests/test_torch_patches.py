@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepatlas_tpu.data import endless as jendless
 from deepatlas_tpu.data import transforms as jtransforms
 from deepatlas_torch.data import transforms as ttransforms
 from deepatlas_torch.data import BalancedRandomCrop, RandomCrop, endless
@@ -171,7 +172,7 @@ def test_experiment_patch_batches_match_jax(tmp_path, sampler, threshold):
     assert getattr(ours_tf, "thresholds", None) == \
         getattr(theirs_tf, "thresholds", None)
     our_iter = endless(ours.training_data_loader)
-    their_iter = endless(theirs.training_data_loader)
+    their_iter = jendless(theirs.training_data_loader)
     classes = []
     for _ in range(12):             # three passes over the 4 volumes
         a, b = next(our_iter), next(their_iter)
