@@ -7,6 +7,16 @@ tag names the JAX package gives its TensorBoard summaries: a JSON-lines
 file and ``.npy`` files, and TensorBoard event files where the
 ``tensorboard`` package imports.
 
+``BaseExperiment`` holds what the seg, reg and joint experiments share: the
+constructor's device, mesh, debug overrides and checkpoint directory; the
+log and the LR scheduler; ``train()``'s epoch loop (validation, the pending
+best, the periodic save of ``_checkpoint_state()``, and the ``profile_dir``
+key: a ``torch.profiler`` trace of the second epoch); resume; the copy of a
+batch's arrays to the device (an ``experiment.copy_in`` span); and the
+choice of ``test()``'s checkpoint.  Each experiment supplies its name, its
+models, losses, data, steps, epoch, validation, ``_checkpoint_state()`` and
+``_restore()``.
+
 The parallel tiers (config keys ``data_parallel`` and ``spatial_shards``,
 exclusive here as in the JAX experiments; DP x SP exists at the step level,
 ``parallel/spatial.py``) run one process per rank, as torchrun starts them
@@ -26,7 +36,13 @@ import types
 import numpy as np
 import torch
 
+from .. import resolve_device
+from ..data import endless
 from ..utils.config import save_dict_to_json
+from ..utils.profiling import annotate, trace
+from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
+from .schedules import make_scheduler, scheduler_from_restored
+from .steps import TrainState, set_learning_rate
 
 
 def _summary_writer(log_dir: str):
@@ -107,10 +123,32 @@ class NullWriter:
 
 class BaseExperiment:
     mesh = None
+    debug_dir: str      # the checkpoint directory's name under ``debug_mode``
 
-    def __init__(self, config: dict, **kwargs):
+    def __init__(self, config: dict):
         self.config = dict(config)
         self.writer = None
+        self.device = resolve_device(self.config.get("device"))
+        self.setup_parallel()
+        if self.config.get("debug_mode"):
+            print("Debug mode")
+            self.config["print_batch_period"] = 2
+            self.config["valid_epoch_period"] = 2
+        self.exp_name = self.experiment_name()
+        self.ckpoint_dir = os.path.join(
+            self.config["log_dir"],
+            self.exp_name if not self.config.get("debug_mode")
+            else self.debug_dir,
+            str(self.config["random_seed"]))
+        print("Init experiment {} seed {}".format(
+            self.exp_name, self.config["random_seed"]))
+        self.current_epoch = 1
+        self.global_step = 0
+        self._pending_best = False
+
+    def experiment_name(self) -> str:
+        """The run's name, from the config: the checkpoint directory's."""
+        raise NotImplementedError()
 
     # parallel tiers -------------------------------------------------------
     def setup_parallel(self) -> None:
@@ -186,7 +224,9 @@ class BaseExperiment:
 
     # lifecycle hooks -----------------------------------------------------
     def setup_log(self):
-        pass
+        os.makedirs(self.ckpoint_dir, exist_ok=True)
+        self.save_config_snapshot(self.ckpoint_dir)
+        self.writer = self.make_writer(self.ckpoint_dir)
 
     def setup_random_seed(self):
         """Seed the numpy, Python and torch generators."""
@@ -205,7 +245,11 @@ class BaseExperiment:
         pass
 
     def setup_optimizer(self):
-        pass
+        self.scheduler = make_scheduler(
+            self.config.get("lr_mode", "const"),
+            self.config["learning_rate"], self.config["n_epochs"],
+            self.config.get("milestones"), self.config.get("gamma", 0.2),
+            self.config.get("valid_epoch_period", 1))
 
     def setup_train(self):
         self.setup_log()
@@ -221,8 +265,89 @@ class BaseExperiment:
             save_dict_to_json(self.config, os.path.join(path,
                                                         "train_config.json"))
 
-    def train(self, **kwargs):
+    def _to_device(self, *arrays, local: bool = False):
+        """The numpy ``arrays`` on the device, in turn, inside one
+        ``experiment.copy_in`` span; with ``local`` this rank's block of
+        each (``local_batch``)."""
+        cut = self.local_batch if local else (lambda x: x)
+        with annotate("experiment.copy_in"):
+            return [torch.from_numpy(cut(a)).to(self.device) for a in arrays]
+
+    def _checkpoint_state(self) -> dict:
+        """What the periodic save writes: the epoch, the models, their
+        optimisers, the best scores and the scheduler."""
         raise NotImplementedError()
+
+    def _restore(self, restored: dict, best: float) -> None:
+        """Load the models, optimisers and best scores of a checkpoint
+        (``best``: the score ``initialize_from`` found)."""
+        raise NotImplementedError()
+
+    def _maybe_resume(self):
+        """Continue from ``resume_dir`` (a checkpoint file or its
+        directory) where the config names one: the next epoch, the
+        scheduler, and its learning rate on every ``TrainState``."""
+        resume_dir = self.config.get("resume_dir")
+        if not resume_dir:
+            return
+        restored, finished_epoch, best = initialize_from(
+            resume_dir, map_location=self.device)
+        self._restore(restored, best)
+        # older checkpoints carry no scheduler state
+        scheduler_from_restored(self.scheduler, restored.get("scheduler"))
+        for state in vars(self).values():
+            if isinstance(state, TrainState):
+                set_learning_rate(state, self.scheduler.lr)
+        self.current_epoch = finished_epoch + 1
+        print("=> resumed from '{}' (epoch {})".format(resume_dir,
+                                                       finished_epoch))
+
+    def train(self):
+        self.setup_train()
+        print("Training {}".format(self.exp_name))
+        self._init_state()
+        self._maybe_resume()
+        self._train_iter = endless(self.training_data_loader)
+        print("Start Training:")
+        profile_dir = self.config.get("profile_dir")
+        for _ in range(self.current_epoch, self.config["n_epochs"] + 1):
+            if profile_dir and self.current_epoch == 2:
+                # trace the second epoch (the first builds the kernels)
+                with trace(profile_dir):
+                    self.train_one_epoch()
+            else:
+                self.train_one_epoch()
+            if self.validate():
+                # pending until persisted: the save cadence is decoupled
+                # from the validation cadence, so a best found at a
+                # validation epoch must survive to the next periodic save
+                # even when the two periods are coprime
+                self._pending_best = True
+            # the periodic save is NOT gated on the validation cadence: a
+            # run whose epochs never hit valid_epoch_period must still
+            # leave a checkpoint for test()/resume
+            if self.current_epoch % self.config["save_ckpts_epoch_period"] \
+                    == 0:
+                self.checkpoint(self._checkpoint_state(), self._pending_best,
+                                self.ckpoint_dir)
+                self._pending_best = False
+            self.current_epoch += 1
+        self.close()
+        print("Finished Training: {}".format(self.exp_name))
+
+    def _test_checkpoint(self, best: bool):
+        """``(path, restored, last_epoch)`` of the checkpoint ``test()``
+        evaluates: the best one, or the periodic one where there is no best
+        (no validation beat the initial score, e.g. in very short runs)."""
+        ckpoint_file = os.path.join(self.ckpoint_dir,
+                                    BEST_NAME if best else CKPT_NAME)
+        if best and not os.path.isfile(ckpoint_file):
+            print("=> no best checkpoint yet; testing the latest periodic "
+                  "checkpoint instead")
+            ckpoint_file = os.path.join(self.ckpoint_dir, CKPT_NAME)
+        restored, last_epoch, _ = initialize_from(ckpoint_file,
+                                                  map_location=self.device)
+        return ckpoint_file, restored, last_epoch
 
     def close(self):
         if self.writer is not None:

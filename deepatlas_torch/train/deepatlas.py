@@ -63,8 +63,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from .. import resolve_device
-from ..data import (Compose, CropVolume, DataLoader, VolumeToArray, endless,
+from ..data import (Compose, CropVolume, DataLoader, VolumeToArray,
                     get_reg_dataset, get_seg_dataset)
 from ..data.augment import fold_in, make_augmenter
 from ..kernels import grid_sample
@@ -74,12 +73,10 @@ from ..parallel.collectives import axis_size
 from ..utils import visualize
 from ..utils.profiling import annotate
 from .base import BaseExperiment, test_logger
-from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
 from .guard import make_guard
 from .reg_steps import (make_joint_reg_step, make_joint_seg_step,
                         make_reg_eval_step)
 from .registration import write_registration_summaries
-from .schedules import make_scheduler, scheduler_from_restored
 from .segmentation import summary_slices
 from .steps import (TrainState, make_optimizer, make_seg_eval_step,
                     set_learning_rate)
@@ -96,42 +93,24 @@ ANATOMY_DTYPE = torch.bfloat16
 
 
 class DeepAtlasExperiment(BaseExperiment):
+    debug_dir = "debug_deepatlas"
+
     def __init__(self, config):
         super().__init__(config)
-        self.device = resolve_device(self.config.get("device"))
-        self.setup_parallel()
-        if self.config.get("debug_mode"):
-            print("Debug mode")
-            self.config["print_batch_period"] = 2
-            self.config["valid_epoch_period"] = 2
+        self.seg_best_score = 0.0
+        self.reg_best_score = 0.0
+        # overflow-guard actions taken (``_apply_guard_action`` calls)
+        self.guard_actions = 0
 
-        self.exp_name = "DeepAtlas_{}_{}_{}labeled_{}epochs_lr_{}".format(
+    def experiment_name(self) -> str:
+        return "DeepAtlas_{}_{}_{}labeled_{}epochs_lr_{}".format(
             os.path.basename(self.config["data_dir"]),
             self.config["seg_model"],
             self.config.get("n_labeled", "all"),
             self.config["n_epochs"],
             self.config["learning_rate"])
-        self.ckpoint_dir = os.path.join(
-            self.config["log_dir"],
-            self.exp_name if not self.config.get("debug_mode")
-            else "debug_deepatlas",
-            str(self.config["random_seed"]))
-        print("Init experiment {} seed {}".format(
-            self.exp_name, self.config["random_seed"]))
-        self.seg_best_score = 0.0
-        self.reg_best_score = 0.0
-        self.current_epoch = 1
-        self.global_step = 0
-        self._pending_best = False
-        # overflow-guard actions taken (``_apply_guard_action`` calls)
-        self.guard_actions = 0
 
     # ------------------------------------------------------------- setup
-    def setup_log(self):
-        os.makedirs(self.ckpoint_dir, exist_ok=True)
-        self.save_config_snapshot(self.ckpoint_dir)
-        self.writer = self.make_writer(self.ckpoint_dir)
-
     def _transforms(self):
         transforms = [VolumeToArray()]
         if self.config.get("crop_size"):
@@ -189,13 +168,6 @@ class DeepAtlasExperiment(BaseExperiment):
             **self.config.get("seg_loss_settings",
                               {"n_class": self.config["n_classes"],
                                "weight_type": "Uniform", "softmax": True}))
-
-    def setup_optimizer(self):
-        self.scheduler = make_scheduler(
-            self.config.get("lr_mode", "const"),
-            self.config["learning_rate"], self.config["n_epochs"],
-            self.config.get("milestones"), self.config.get("gamma", 0.2),
-            self.config.get("valid_epoch_period", 1))
 
     def _init_state(self):
         self.seg_model.to(self.device)
@@ -335,64 +307,24 @@ class DeepAtlasExperiment(BaseExperiment):
                 "reg_best_score": self.reg_best_score,
                 "scheduler": self.scheduler.state_dict()}
 
-    def _maybe_resume(self):
-        resume_dir = self.config.get("resume_dir")
-        if not resume_dir:
-            return
-        restored, finished_epoch, _ = initialize_from(
-            resume_dir, map_location=self.device)
+    def _restore(self, restored: dict, best: float) -> None:
         self.seg_model.load_state_dict(restored["seg_model"])
         self.seg_state.optimizer.load_state_dict(restored["seg_optimizer"])
         self.reg_model.load_state_dict(restored["reg_model"])
         self.reg_state.optimizer.load_state_dict(restored["reg_optimizer"])
-        scheduler_from_restored(self.scheduler, restored.get("scheduler"))
-        for state in (self.seg_state, self.reg_state):
-            set_learning_rate(state, self.scheduler.lr)
         self.seg_best_score = float(restored["seg_best_score"])
         self.reg_best_score = float(restored["reg_best_score"])
-        self.current_epoch = finished_epoch + 1
-        print("=> resumed from '{}' (epoch {})".format(resume_dir,
-                                                       finished_epoch))
 
-    def _to_device(self, *batches, local: bool = False):
-        """Each batch's image and labels (int64) on the device, in turn;
-        with ``local`` this rank's block of them (``local_batch``)."""
-        cut = self.local_batch if local else (lambda x: x)
-        out = []
-        with annotate("experiment.copy_in"):
-            for batch in batches:
-                out.append(torch.from_numpy(cut(batch["image"])).to(
-                    self.device))
-                out.append(torch.from_numpy(cut(batch["segmentation"])).to(
-                    self.device).long())
+    def _labelled_to_device(self, *batches, local: bool = False):
+        """Each batch's image and labels (int64) on the device, in turn
+        (``_to_device``)."""
+        out = self._to_device(*(b[k] for b in batches
+                                for k in ("image", "segmentation")),
+                              local=local)
+        out[1::2] = [labels.long() for labels in out[1::2]]
         return out
 
     # ------------------------------------------------------------- train
-    def train(self):
-        self.setup_train()
-        print("Training {}".format(self.exp_name))
-        self._init_state()
-        self._maybe_resume()
-        self._train_iter = endless(self.training_data_loader)
-        print("Start Training:")
-        for _ in range(self.current_epoch, self.config["n_epochs"] + 1):
-            self.train_one_epoch()
-            if self.validate():
-                # pending until persisted: a best found at a validation
-                # epoch must survive to the next periodic save when the
-                # save and validation cadences are coprime
-                self._pending_best = True
-            # periodic save independent of the validation cadence (a run
-            # that never validates must still leave a checkpoint)
-            if self.current_epoch % self.config["save_ckpts_epoch_period"] \
-                    == 0:
-                self.checkpoint(self._checkpoint_state(), self._pending_best,
-                                self.ckpoint_dir)
-                self._pending_best = False
-            self.current_epoch += 1
-        self.close()
-        print("Finished Training: {}".format(self.exp_name))
-
     def _has_label_flags(self, batch) -> torch.Tensor:
         """``(B,)`` bool on the host: which volumes keep their labels."""
         return torch.tensor([name in self.labeled_names
@@ -409,8 +341,8 @@ class DeepAtlasExperiment(BaseExperiment):
             aug = self.augmenter is not None
             # augmented whole, as one process does it, then cut to the
             # rank's block
-            img_m, seg_m, img_f, seg_f = self._to_device(batch_m, batch_f,
-                                                         local=not aug)
+            img_m, seg_m, img_f, seg_f = self._labelled_to_device(
+                batch_m, batch_f, local=not aug)
             if aug:
                 akey = (self.config["random_seed"], 2 ** 20 + self.global_step)
                 img_m, seg_m = self.augmenter(fold_in(akey, 0), img_m, seg_m)
@@ -478,7 +410,7 @@ class DeepAtlasExperiment(BaseExperiment):
         count = 0
         for batch in seg_loader:
             dice, _ = self.seg_eval_step(self.seg_state,
-                                         *self._to_device(batch))
+                                         *self._labelled_to_device(batch))
             dice_sum += dice.double().sum(dim=0).cpu().numpy()
             count += dice.shape[0]
         seg_per_class = dice_sum / max(count, 1)
@@ -487,7 +419,8 @@ class DeepAtlasExperiment(BaseExperiment):
         folding_sum = 0.0
         count = 0
         for batch_m, batch_f in reg_loader:
-            img_m, seg_m, img_f, seg_f = self._to_device(batch_m, batch_f)
+            img_m, seg_m, img_f, seg_f = self._labelled_to_device(
+                batch_m, batch_f)
             dice, folding, _ = self.reg_eval_step(
                 self.reg_state, img_m, img_f, seg_m, seg_f)
             dice_sum += dice.double().sum(dim=0).cpu().numpy()
@@ -562,16 +495,7 @@ class DeepAtlasExperiment(BaseExperiment):
             self.config["testing_list_file"], test_dir)
         self._init_state()
 
-        ckpoint_file = os.path.join(self.ckpoint_dir,
-                                    BEST_NAME if best else CKPT_NAME)
-        if best and not os.path.isfile(ckpoint_file):
-            # no validation ever beat the initial scores (e.g. very short
-            # runs): test the periodic checkpoint instead
-            print("=> no best checkpoint yet; testing the latest periodic "
-                  "checkpoint instead")
-            ckpoint_file = os.path.join(self.ckpoint_dir, CKPT_NAME)
-        restored, last_epoch, _ = initialize_from(ckpoint_file,
-                                                  map_location=self.device)
+        ckpoint_file, restored, last_epoch = self._test_checkpoint(best)
         self.seg_model.load_state_dict(restored["seg_model"])
         self.reg_model.load_state_dict(restored["reg_model"])
 

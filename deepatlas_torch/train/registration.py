@@ -10,7 +10,8 @@ reports the mean foreground dice and the Jacobian folding fraction, both
 computed on the device.  With ``image_summary`` (default True) each
 validation writes the image panels of the first validation pair
 (``validation/{images,disp_field,masks,deform_grid}``,
-``write_registration_summaries``).
+``write_registration_summaries``).  A pair's copy to the device is an
+``experiment.copy_in`` span (``utils/profiling.py``).
 
 The device comes from the config key ``device`` (``cuda`` when absent; the
 experiment raises without a card unless ``device="cpu"`` is asked for).
@@ -34,17 +35,14 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
-from ..data import (Compose, CropVolume, DataLoader, VolumeToArray, endless,
+from ..data import (Compose, CropVolume, DataLoader, VolumeToArray,
                     get_reg_dataset)
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
 from ..ops import warp_labels
 from ..utils import visualize
 from .base import BaseExperiment, test_logger
-from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
 from .reg_steps import make_reg_eval_step, make_reg_train_step
-from .schedules import make_scheduler, scheduler_from_restored
 from .steps import TrainState, make_optimizer, set_learning_rate
 
 
@@ -86,16 +84,14 @@ def write_registration_summaries(writer, model, loader, device,
 
 
 class RegistrationExperiment(BaseExperiment):
+    debug_dir = "debug_reg"
+
     def __init__(self, config):
         super().__init__(config)
-        self.device = resolve_device(self.config.get("device"))
-        self.setup_parallel()
-        if self.config.get("debug_mode"):
-            print("Debug mode")
-            self.config["print_batch_period"] = 2
-            self.config["valid_epoch_period"] = 2
+        self.best_score = 0.0
 
-        self.exp_name = "Reg_{}_{}_{}epochs_{}_{}_w{}_lr_{}{}".format(
+    def experiment_name(self) -> str:
+        return "Reg_{}_{}_{}epochs_{}_{}_w{}_lr_{}{}".format(
             self.config["model"],
             os.path.basename(self.config["data_dir"]),
             self.config["n_epochs"],
@@ -106,23 +102,7 @@ class RegistrationExperiment(BaseExperiment):
             "_scheduler_{}".format(self.config["lr_mode"])
             if self.config.get("lr_mode", "const") != "const" else "")
 
-        self.ckpoint_dir = os.path.join(
-            self.config["log_dir"],
-            self.exp_name if not self.config.get("debug_mode") else "debug_reg",
-            str(self.config["random_seed"]))
-        print("Init experiment {} seed {}".format(
-            self.exp_name, self.config["random_seed"]))
-        self.best_score = 0.0
-        self.current_epoch = 1
-        self.global_step = 0
-        self._pending_best = False
-
     # ------------------------------------------------------------- setup
-    def setup_log(self):
-        os.makedirs(self.ckpoint_dir, exist_ok=True)
-        self.save_config_snapshot(self.ckpoint_dir)
-        self.writer = self.make_writer(self.ckpoint_dir)
-
     def _transforms(self):
         transforms = [VolumeToArray()]
         if self.config.get("crop_size"):
@@ -163,13 +143,6 @@ class RegistrationExperiment(BaseExperiment):
             self.config.get("reg_loss", "bendingEnergy"))(
             **self.config.get("reg_loss_settings", {}))
 
-    def setup_optimizer(self):
-        self.scheduler = make_scheduler(
-            self.config.get("lr_mode", "const"),
-            self.config["learning_rate"], self.config["n_epochs"],
-            self.config.get("milestones"), self.config.get("gamma", 0.2),
-            self.config.get("valid_epoch_period", 1))
-
     def _init_state(self):
         self.model.to(self.device)
         self.state = TrainState(
@@ -204,58 +177,19 @@ class RegistrationExperiment(BaseExperiment):
                 max_disp=self.model.max_disp)
         self.eval_step = make_reg_eval_step(self.config["n_classes"])
 
-    def _maybe_resume(self):
-        resume_dir = self.config.get("resume_dir")
-        if resume_dir:
-            restored, finished_epoch, best = initialize_from(
-                resume_dir, map_location=self.device)
-            self.model.load_state_dict(restored["model"])
-            self.state.optimizer.load_state_dict(restored["optimizer"])
-            # older checkpoints carry no scheduler state
-            scheduler_from_restored(self.scheduler, restored.get("scheduler"))
-            set_learning_rate(self.state, self.scheduler.lr)
-            self.best_score = best
-            self.current_epoch = finished_epoch + 1
-            print("=> resumed from '{}' (epoch {})".format(resume_dir,
-                                                           finished_epoch))
+    def _checkpoint_state(self) -> dict:
+        return {"epoch": self.current_epoch,
+                "model": self.model.state_dict(),
+                "optimizer": self.state.optimizer.state_dict(),
+                "reg_best_score": self.best_score,
+                "scheduler": self.scheduler.state_dict()}
 
-    def _to_device(self, batch, key, local: bool = False):
-        """``batch[key]`` on the device; with ``local`` this rank's block of
-        it (``local_batch``)."""
-        x = self.local_batch(batch[key]) if local else batch[key]
-        return torch.from_numpy(x).to(self.device)
+    def _restore(self, restored: dict, best: float) -> None:
+        self.model.load_state_dict(restored["model"])
+        self.state.optimizer.load_state_dict(restored["optimizer"])
+        self.best_score = best
 
     # ------------------------------------------------------------- train
-    def train(self):
-        self.setup_train()
-        print("Training {}".format(self.exp_name))
-        self._init_state()
-        self._maybe_resume()
-        self._train_iter = endless(self.training_data_loader)
-        print("Start Training:")
-        for _ in range(self.current_epoch, self.config["n_epochs"] + 1):
-            self.train_one_epoch()
-            if self.validate():
-                # pending until persisted: a best found at a validation
-                # epoch must survive to the next periodic save when the
-                # save and validation cadences are coprime
-                self._pending_best = True
-            # periodic save independent of the validation cadence (a run
-            # that never validates must still leave a checkpoint)
-            if self.current_epoch % self.config["save_ckpts_epoch_period"] \
-                    == 0:
-                self.checkpoint({"epoch": self.current_epoch,
-                                 "model": self.model.state_dict(),
-                                 "optimizer":
-                                     self.state.optimizer.state_dict(),
-                                 "reg_best_score": self.best_score,
-                                 "scheduler": self.scheduler.state_dict()},
-                                self._pending_best, self.ckpoint_dir)
-                self._pending_best = False
-            self.current_epoch += 1
-        self.close()
-        print("Finished Training: {}".format(self.exp_name))
-
     def train_one_epoch(self):
         running = {"loss": 0.0, "sim": 0.0, "reg": 0.0}
         period = self.config["print_batch_period"]
@@ -263,8 +197,8 @@ class RegistrationExperiment(BaseExperiment):
                  // self.config["batch_size"])
         for i in range(iters):
             batch_m, batch_f = next(self._train_iter)
-            moving = self._to_device(batch_m, "image", local=True)
-            fixed = self._to_device(batch_f, "image", local=True)
+            moving, fixed = self._to_device(batch_m["image"],
+                                            batch_f["image"], local=True)
             self.state, metrics = self.train_step(self.state, moving, fixed)
             self.global_step = ((self.current_epoch - 1) * iters + i + 1) \
                 * self.config["batch_size"]
@@ -301,11 +235,9 @@ class RegistrationExperiment(BaseExperiment):
         folding_sum = 0.0
         count = 0
         for batch_m, batch_f in dataloader:
-            dice, folding, _ = self.eval_step(
-                self.state, self._to_device(batch_m, "image"),
-                self._to_device(batch_f, "image"),
-                self._to_device(batch_m, "segmentation"),
-                self._to_device(batch_f, "segmentation"))
+            dice, folding, _ = self.eval_step(self.state, *self._to_device(
+                batch_m["image"], batch_f["image"], batch_m["segmentation"],
+                batch_f["segmentation"]))
             dice_sum += dice.double().sum(dim=0).cpu().numpy()
             folding_sum += float(folding)
             count += dice.shape[0]
@@ -356,16 +288,7 @@ class RegistrationExperiment(BaseExperiment):
         self.validation_data_loader = DataLoader(testing_data, batch_size=1,
                                                  shuffle=False, prefetch=2)
         self._init_state()
-        ckpoint_file = os.path.join(self.ckpoint_dir,
-                                    BEST_NAME if best else CKPT_NAME)
-        if best and not os.path.isfile(ckpoint_file):
-            # no validation ever beat the initial best score (e.g. very
-            # short runs): test the periodic checkpoint instead
-            print("=> no best checkpoint yet; testing the latest periodic "
-                  "checkpoint instead")
-            ckpoint_file = os.path.join(self.ckpoint_dir, CKPT_NAME)
-        restored, last_epoch, _ = initialize_from(ckpoint_file,
-                                                  map_location=self.device)
+        ckpoint_file, restored, last_epoch = self._test_checkpoint(best)
         self.model.load_state_dict(restored["model"])
         dice_per_class, dice_avg, folding = self.eval(
             self.validation_data_loader,

@@ -5,8 +5,7 @@ name and checkpoint-dir layout, MultiStep / plateau LR scheduling, periodic
 validation with per-class dice computed on the device, best-checkpoint
 tracking, scalars under the same tag names (into ``scalars.jsonl``, see
 ``train/base.py``), config snapshot, resume, a logging ``test()``, and the
-``profile_dir`` key: a ``torch.profiler`` trace of the second epoch.
-Each training step is an ``experiment.step`` span (``step.forward``,
+``profile_dir`` key (``train/base.py``).  Each training step is an ``experiment.step`` span (``step.forward``,
 ``step.loss`` and ``step.backward`` inside it, Adam's own marker after
 them), its copy to the device ``experiment.copy_in`` and the print
 period's scalars and summaries ``experiment.log`` (``utils/profiling.py``
@@ -43,18 +42,14 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
 from ..data import (BalancedRandomCrop, Compose, CropVolume, DataLoader,
-                    LeftToRight, RandomCrop, VolumeToArray, endless,
-                    get_seg_dataset)
+                    LeftToRight, RandomCrop, VolumeToArray, get_seg_dataset)
 from ..data.augment import make_augmenter
 from ..losses import get_loss_function
 from ..models import get_network, resolve_model_settings
 from ..utils import visualize
-from ..utils.profiling import annotate, trace
-from .base import BaseExperiment, ScalarWriter, test_logger
-from .checkpoint import BEST_NAME, CKPT_NAME, initialize_from
-from .schedules import make_scheduler, scheduler_from_restored
+from ..utils.profiling import annotate
+from .base import BaseExperiment, test_logger
 from .steps import (TrainState, make_optimizer, make_seg_eval_step,
                     make_seg_train_step, set_learning_rate)
 
@@ -76,17 +71,15 @@ def summary_slices(images: np.ndarray, truths: np.ndarray,
 
 
 class SegmentationExperiment(BaseExperiment):
+    debug_dir = "debug_seg"
+
     def __init__(self, config):
         super().__init__(config)
-        self.device = resolve_device(self.config.get("device"))
-        self.setup_parallel()
-        if self.config.get("debug_mode"):
-            print("Debug mode")
-            self.config["print_batch_period"] = 2
-            self.config["valid_epoch_period"] = 2
+        self.best_score = 0.0
 
+    def experiment_name(self) -> str:
         ms = self.config["model_settings"]
-        self.exp_name = "Seg_{}{}{}_{}_{}samples_batch_{}_{}epochs_{}_{}_lr_{}{}".format(
+        return "Seg_{}{}{}_{}_{}samples_batch_{}_{}epochs_{}_{}_lr_{}{}".format(
             self.config["model"],
             "_bias" if ms.get("bias") else "",
             "_BN" if ms.get("BN") else "",
@@ -100,23 +93,7 @@ class SegmentationExperiment(BaseExperiment):
             "_scheduler_{}".format(self.config["lr_mode"])
             if self.config["lr_mode"] != "const" else "")
 
-        self.ckpoint_dir = os.path.join(
-            self.config["log_dir"],
-            self.exp_name if not self.config.get("debug_mode") else "debug_seg",
-            str(self.config["random_seed"]))
-        print("Init experiment {} seed {}".format(
-            self.exp_name, self.config["random_seed"]))
-        self.best_score = 0.0
-        self.current_epoch = 1
-        self.global_step = 0
-        self._pending_best = False
-
     # ------------------------------------------------------------- setup
-    def setup_log(self):
-        os.makedirs(self.ckpoint_dir, exist_ok=True)
-        self.save_config_snapshot(self.ckpoint_dir)
-        self.writer = self.make_writer(self.ckpoint_dir)
-
     def _transforms(self):
         transforms = [VolumeToArray()]
         if self.config.get("flip_left"):
@@ -173,13 +150,6 @@ class SegmentationExperiment(BaseExperiment):
         self.criterion = get_loss_function(self.config["loss"])(
             **self.config["loss_settings"])
 
-    def setup_optimizer(self):
-        self.scheduler = make_scheduler(
-            self.config.get("lr_mode", "const"),
-            self.config["learning_rate"], self.config["n_epochs"],
-            self.config.get("milestones"), self.config.get("gamma", 0.2),
-            self.config.get("valid_epoch_period", 1))
-
     def _init_state(self):
         self.model.to(self.device)
         self.state = TrainState(
@@ -221,72 +191,19 @@ class SegmentationExperiment(BaseExperiment):
             self.eval_step = make_seg_eval_step(n_class)
         self.augmenter = make_augmenter(self.config.get("augmentation"))
 
-    def _maybe_resume(self):
-        resume_dir = self.config.get("resume_dir")
-        if resume_dir:
-            restored, finished_epoch, best = initialize_from(
-                resume_dir, map_location=self.device)
-            self.model.load_state_dict(restored["model"])
-            self.state.optimizer.load_state_dict(restored["optimizer"])
-            # older checkpoints carry no scheduler state
-            scheduler_from_restored(self.scheduler, restored.get("scheduler"))
-            set_learning_rate(self.state, self.scheduler.lr)
-            self.best_score = best
-            self.current_epoch = finished_epoch + 1
-            print("=> resumed from '{}' (epoch {})".format(resume_dir,
-                                                           finished_epoch))
+    def _checkpoint_state(self) -> dict:
+        return {"epoch": self.current_epoch,
+                "model": self.model.state_dict(),
+                "optimizer": self.state.optimizer.state_dict(),
+                "best_score": self.best_score,
+                "scheduler": self.scheduler.state_dict()}
 
-    def _to_device(self, batch, local: bool = False):
-        """The batch's images and labels on the device; with ``local`` this
-        rank's block of them (``local_batch``)."""
-        cut = self.local_batch if local else (lambda x: x)
-        with annotate("experiment.copy_in"):
-            images = torch.from_numpy(cut(batch["image"])).to(self.device)
-            labels = torch.from_numpy(cut(batch["segmentation"])).to(
-                self.device)
-        return images, labels
+    def _restore(self, restored: dict, best: float) -> None:
+        self.model.load_state_dict(restored["model"])
+        self.state.optimizer.load_state_dict(restored["optimizer"])
+        self.best_score = best
 
     # ------------------------------------------------------------- train
-    def train(self):
-        self.setup_train()
-        print("Training {}".format(self.exp_name))
-        self._init_state()
-        self._maybe_resume()
-        self._train_iter = endless(self.training_data_loader)
-
-        print(self.config["samples_per_epoch"], self.config["batch_size"])
-        print("Start Training:")
-        profile_dir = self.config.get("profile_dir")
-        for _ in range(self.current_epoch, self.config["n_epochs"] + 1):
-            if profile_dir and self.current_epoch == 2:
-                # trace the second epoch (the first builds the kernels)
-                with trace(profile_dir):
-                    self.train_one_epoch()
-            else:
-                self.train_one_epoch()
-            if self.validate():
-                # pending until persisted: the save cadence is decoupled
-                # from the validation cadence, so a best found at a
-                # validation epoch must survive to the next periodic save
-                # even when the two periods are coprime
-                self._pending_best = True
-            # the periodic save is NOT gated on the validation cadence: a
-            # run whose epochs never hit valid_epoch_period must still
-            # leave a checkpoint for test()/resume
-            if self.current_epoch % self.config["save_ckpts_epoch_period"] \
-                    == 0:
-                self.checkpoint({"epoch": self.current_epoch,
-                                 "model": self.model.state_dict(),
-                                 "optimizer":
-                                     self.state.optimizer.state_dict(),
-                                 "best_score": self.best_score,
-                                 "scheduler": self.scheduler.state_dict()},
-                                self._pending_best, self.ckpoint_dir)
-                self._pending_best = False
-            self.current_epoch += 1
-        self.close()
-        print("Finished Training: {}".format(self.exp_name))
-
     def train_one_epoch(self):
         running_loss = 0.0
         period = self.config["print_batch_period"]
@@ -299,14 +216,16 @@ class SegmentationExperiment(BaseExperiment):
             if self.augmenter is not None:
                 # the whole batch, as one process augments it, then the
                 # rank's block of it
-                images, labels = self._to_device(batch)
+                images, labels = self._to_device(batch["image"],
+                                                 batch["segmentation"])
                 akey = (self.config["random_seed"], 2 ** 20 + self.global_step)
                 images, labels = self.augmenter(akey, images, labels)
                 if self.mesh is not None:
                     images = self.local_batch(images)
                     labels = self.local_batch(labels)
             else:
-                images, labels = self._to_device(batch, local=True)
+                images, labels = self._to_device(
+                    batch["image"], batch["segmentation"], local=True)
             with annotate("experiment.step"):
                 self.state, loss, logits = self.train_step(self.state,
                                                            images, labels)
@@ -361,7 +280,8 @@ class SegmentationExperiment(BaseExperiment):
         last = None
         cut = self.local_batch if self.local_eval else (lambda x: x)
         for batch in dataloader:
-            images, labels = self._to_device(batch, local=self.local_eval)
+            images, labels = self._to_device(
+                batch["image"], batch["segmentation"], local=self.local_eval)
             dice, logits = self.eval_step(self.state, images, labels)
             dice_sum += dice.double().sum(dim=0).cpu().numpy()
             count += dice.shape[0]
@@ -421,16 +341,7 @@ class SegmentationExperiment(BaseExperiment):
         self.validation_data_loader = self.testing_data_loader
         self._init_state()
 
-        ckpoint_file = os.path.join(self.ckpoint_dir,
-                                    BEST_NAME if best else CKPT_NAME)
-        if best and not os.path.isfile(ckpoint_file):
-            # no validation ever beat the initial best score (e.g. very
-            # short runs): test the periodic checkpoint instead
-            print("=> no best checkpoint yet; testing the latest periodic "
-                  "checkpoint instead")
-            ckpoint_file = os.path.join(self.ckpoint_dir, CKPT_NAME)
-        restored, last_epoch, _ = initialize_from(ckpoint_file,
-                                                  map_location=self.device)
+        ckpoint_file, restored, last_epoch = self._test_checkpoint(best)
         self.model.load_state_dict(restored["model"])
 
         dice_per_class, dice_avg, _ = self.eval(self.testing_data_loader)

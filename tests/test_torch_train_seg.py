@@ -4,8 +4,11 @@ Schedulers are held against the JAX package's own (same LR sequences and
 state dicts); a tiny MindBoggle-layout corpus runs through
 ``SegmentationExperiment`` with ``device="cpu"`` (train, validate,
 checkpoints, resume, ``test()``), and ``train_seg_torch.main`` runs end to
-end with ``--device cpu`` at the recipe's 32 classes and crop.
+end with ``--device cpu`` at the recipe's 32 classes and crop.  The seg,
+reg and joint experiments are held to the one lifecycle of
+``train/base.py``.
 """
+import importlib
 import json
 import os
 import subprocess
@@ -20,11 +23,14 @@ import torch
 
 from deepatlas_tpu.train import schedules as jax_schedules
 from deepatlas_torch.data import NiftiImage, endless, write_nifti
-from deepatlas_torch.train import (SegmentationExperiment, initialize_from,
+from deepatlas_torch.train import (DeepAtlasExperiment,
+                                   RegistrationExperiment,
+                                   SegmentationExperiment, initialize_from,
                                    load_checkpoint, make_scheduler,
                                    save_checkpoint, scheduler_from_restored)
 from deepatlas_torch.utils import spans_between
 
+import chip_smoke
 import train_seg_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,15 +161,19 @@ def test_training_learns_and_logs_the_reference_tags(trained_experiment):
     assert exp.state.optimizer.param_groups[0]["lr"] == pytest.approx(4e-4)
 
 
+def seg_epoch_config(root):
+    names = [f"scan{i}" for i in range(2)]
+    make_mindboggle_corpus(root, names)
+    for list_name in ("train.txt", "valid.txt", "test.txt"):
+        (root / list_name).write_text("".join(f"{n}\n" for n in names))
+    return tiny_config(root)
+
+
 def test_epoch_logs_the_experiment_and_step_spans(tmp_path):
     """Per step one ``experiment.copy_in``, then one ``experiment.step``
     holding ``step.forward``, ``step.loss`` and ``step.backward`` in turn;
     ``experiment.log`` once per print period and once for the summary."""
-    names = [f"scan{i}" for i in range(2)]
-    make_mindboggle_corpus(tmp_path, names)
-    for list_name in ("train.txt", "valid.txt", "test.txt"):
-        (tmp_path / list_name).write_text("".join(f"{n}\n" for n in names))
-    exp = SegmentationExperiment(tiny_config(tmp_path))
+    exp = SegmentationExperiment(seg_epoch_config(tmp_path))
     exp.setup_train()
     exp._init_state()
     exp._train_iter = endless(exp.training_data_loader)
@@ -184,6 +194,41 @@ def test_epoch_logs_the_experiment_and_step_spans(tmp_path):
         assert [n for n, _, _ in inner] == ["step.forward", "step.loss",
                                             "step.backward"], k
         assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
+
+
+def pair_epoch_config(module_name):
+    """The tiny config of ``tests/<module_name>.py`` on its corpus of
+    deformed, labelled textures."""
+    def make(root):
+        module = importlib.import_module(f"tests.{module_name}")
+        chip_smoke.write_reg_corpus(str(root), seed=3, shape=module.SHAPE,
+                                    max_shift=1.0)
+        return module.tiny_config(root, n_epochs=1)
+    return make
+
+
+@pytest.mark.parametrize("cls,make_config", [
+    (SegmentationExperiment, seg_epoch_config),
+    (RegistrationExperiment, pair_epoch_config("test_torch_train_reg")),
+    (DeepAtlasExperiment, pair_epoch_config("test_torch_train_deepatlas")),
+], ids=["seg", "reg", "joint"])
+def test_experiments_share_one_lifecycle(cls, make_config, tmp_path):
+    """The seg, reg and joint experiments take the lifecycle from
+    ``BaseExperiment`` and define none of it themselves; and so each logs
+    one ``experiment.copy_in`` per training step."""
+    own = {"train", "_maybe_resume", "_to_device", "setup_log",
+           "setup_optimizer"} & set(vars(cls))
+    assert not own, (cls.__name__, own)
+    exp = cls(make_config(tmp_path))
+    exp.setup_train()
+    exp._init_state()
+    exp._train_iter = endless(exp.training_data_loader)
+    t0 = time.perf_counter()
+    exp.train_one_epoch()
+    spans = spans_between(t0, time.perf_counter())
+    exp.close()
+    steps = exp.config["samples_per_epoch"] // exp.config["batch_size"]
+    assert Counter(n for n, _, _ in spans)["experiment.copy_in"] == steps
 
 
 def test_checkpoint_files_and_contents(trained_experiment):
